@@ -1,0 +1,120 @@
+"""U-Net building blocks.
+
+Counterpart of `hybrid_diffusion_tpu/models/blocks.py`. The JAX blocks are
+NHWC; these take NCHW, the port's inner layout (the model converts at its
+boundary). Module and parameter names follow the flax ones, so that
+`weights.py` maps one onto the other.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import fused_spatial_attention
+from ..ops.fast_conv import conv_transpose_5x5_s2, fused_dual_downsample
+from .layers import Conv, Dense, GroupNorm32
+
+
+class SpatialSelfAttention(nn.Module):
+    """Multi-head self-attention over the H·W tokens: a packed q|k|v
+    projection, scaled dot-product attention per head, an output
+    projection."""
+
+    def __init__(self, channels: int, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels do not split into "
+                             f"{num_heads} heads")
+        self.num_heads = num_heads
+        self.in_proj = Dense(channels, 3 * channels, dtype)
+        self.out_proj = Dense(channels, channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        N, heads = H * W, self.num_heads
+        tokens = x.flatten(2).transpose(1, 2)                # (B, N, C)
+        qkv = self.in_proj(tokens)                           # (B, N, 3C)
+        # Strided views, no copies: the kernel reads (B, N, h, d) by strides.
+        q, k, v = qkv.view(B, N, 3, heads, C // heads).unbind(2)
+        out = fused_spatial_attention(q, k, v)               # (B, N, h, d)
+        out = self.out_proj(out.reshape(B, N, C))
+        return out.transpose(1, 2).reshape(B, C, H, W)
+
+
+class ResBlock(nn.Module):
+    """GN → SiLU → Conv3 | + temb | + cemb | GN → SiLU → Conv3 | + shortcut,
+    then, with `attn`, spatial attention that REPLACES h (no residual, as in
+    the reference). GroupNorm runs in fp32 and its SiLU output is cast to
+    the compute dtype. Inference only: dropout is the identity."""
+
+    def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool = False,
+                 num_heads: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = GroupNorm32(in_ch)
+        self.conv1 = Conv(in_ch, out_ch, 3, dtype)
+        self.temb_proj = Dense(tdim, out_ch, dtype)
+        self.cemb_proj = Dense(tdim, out_ch, dtype)
+        self.norm2 = GroupNorm32(out_ch)
+        self.conv2 = Conv(out_ch, out_ch, 3, dtype)
+        self.shortcut = Conv(in_ch, out_ch, 1, dtype) if in_ch != out_ch else None
+        self.attn = (SpatialSelfAttention(out_ch, num_heads, dtype)
+                     if attn else None)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                cemb: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h = self.conv1(F.silu(self.norm1(x)).to(dt))
+        h = h + self.temb_proj(F.silu(temb.to(dt)))[:, :, None, None]
+        h = h + self.cemb_proj(F.silu(cemb.to(dt)))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)).to(dt))
+        if self.shortcut is not None:
+            x = self.shortcut(x)
+        h = h + x
+        if self.attn is not None:
+            h = self.attn(h)
+        return h
+
+
+def _conv_param(out_ch: int, in_ch: int, k: int) -> nn.Parameter:
+    bound = (in_ch * k * k) ** -0.5
+    return nn.Parameter(torch.empty(out_ch, in_ch, k, k).uniform_(-bound, bound))
+
+
+def _bias_param(ch: int, fan_in: int) -> nn.Parameter:
+    bound = fan_in ** -0.5
+    return nn.Parameter(torch.empty(ch).uniform_(-bound, bound))
+
+
+class DownSample(nn.Module):
+    """Sum of a 3×3 and a 5×5 stride-2 SAME conv, run as one fused 5×5
+    (ops/fast_conv.py)."""
+
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.k3, self.b3 = _conv_param(ch, ch, 3), _bias_param(ch, ch * 9)
+        self.k5, self.b5 = _conv_param(ch, ch, 5), _bias_param(ch, ch * 25)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_dual_downsample(x.to(self.dtype), self.k3, self.b3,
+                                     self.k5, self.b5)
+
+
+class UpSample(nn.Module):
+    """ConvTranspose 5×5 stride 2 (SAME, exact 2×) in its 4-phase form, then
+    a 3×3 conv."""
+
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.kt, self.bt = _conv_param(ch, ch, 5), _bias_param(ch, ch * 25)
+        self.c = Conv(ch, ch, 3, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        x = conv_transpose_5x5_s2(x, self.kt) + self.bt.to(x.dtype)[:, None, None]
+        return self.c(x)

@@ -1,0 +1,129 @@
+"""Fused spatial self-attention for the U-Net bottleneck.
+
+Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
+
+  - `attention_reference`: the plain PyTorch version, the einsum/softmax
+    form of the JAX `_xla_attention` (fp32 scores and softmax). The CPU path
+    and the tests use it.
+  - `fused_spatial_attention`: the wrapper. A CPU tensor goes to
+    `attention_reference`; a CUDA tensor goes to the hand-written CUDA kernel
+    in `csrc/attention.cu` (which replaces the TPU's `_pallas_attention`) or
+    the call raises. There is no fallback from the card to the plain version.
+
+Tensors are (B, N, heads, head_dim), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..utils import cuda_build
+
+SOURCE = "attention.cu"
+HEAD_DIMS = (16, 32, 64)
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# Launches of the CUDA kernel in this process (one per launch, nowhere else).
+launch_count = 0
+_library: cuda_build.BuiltLibrary | None = None
+
+
+def reset_launch_count() -> None:
+    global launch_count
+    launch_count = 0
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """q, k, v: (B, N, h, d) -> (B, N, h, d). Scores and softmax in fp32.
+
+    Mirrors `_xla_attention`: the probabilities are cast to the input dtype
+    before the product with v, which accumulates in fp32.
+    """
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
+def load_kernel() -> cuda_build.BuiltLibrary:
+    """Build (at first use) and load the CUDA attention library."""
+    global _library
+    if _library is None:
+        built = cuda_build.build(SOURCE)
+        fn = built.lib.hd_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _library = built
+    return _library
+
+
+def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"attention: {name} is {t.dtype}, q is {q.dtype}")
+        if t.shape != q.shape:
+            raise ValueError(f"attention: {name} has shape {tuple(t.shape)}, "
+                             f"q has {tuple(q.shape)}")
+        if t.dim() != 4:
+            raise ValueError(f"attention: {name} must be (B, N, h, d), got "
+                             f"{tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"attention: {name} must be contiguous in its "
+                             f"last (head_dim) axis, strides {t.stride()}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"attention kernel takes float32, float16 or bfloat16, "
+                        f"got {q.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "the CUDA attention kernel is forward only; its backward comes "
+            "with the training slice (ROADMAP.md, queue 2, kernel 1)")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    global launch_count
+    _check_cuda_inputs(q, k, v)
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = load_kernel().lib.hd_attention_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, N, H, D, _DTYPE_CODES[q.dtype],
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err} "
+                           f"(B={B}, N={N}, h={H}, d={D}, {q.dtype})")
+    launch_count += 1
+    return out
+
+
+def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """Scaled-dot-product attention over (B, N, heads, head_dim) tensors.
+
+    CPU tensors take the plain version; CUDA tensors take the CUDA kernel.
+    """
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    if q.device.type == "cuda":
+        return _launch(q, k, v)
+    raise ValueError(f"attention: unsupported device {q.device}")
