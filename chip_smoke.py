@@ -8,19 +8,27 @@ From a clean checkout, with no arguments, it:
   1. env    prints the Python, torch and CUDA versions and the card's name
             and power limit (nvidia-smi), and turns TF32 off for matmuls and
             cuDNN, so that every fp32 number below is full fp32;
-  2. build  compiles the CUDA attention kernel with nvcc (or reuses the
-            library built from the same source) and loads it;
-  3. kernel holds the kernel against its plain PyTorch version on the card
-            at the flagship shape and at bf16 / fp32 / fp16, d = 16 / 64 and
-            a ragged N (in bf16 and fp32), and times kernel, plain version and
-            scaled_dot_product_attention (CUDA events, median of 25);
+  2. build  compiles the CUDA attention kernels with nvcc (or reuses the
+            library built from the same source) and loads them; prints each
+            kernel's registers and spills (ptxas) and its
+            count of HMMA (tensor-core) instructions (cuobjdump -sass), and
+            fails if a tensor-core kernel has none or spills;
+  3. kernel holds the kernels against their plain PyTorch version on the
+            card at the shapes the serve and path phases give them (and the
+            flagship shape in fp32), at bf16 / fp16, d = 16 / 64, a ragged N
+            (in bf16 and fp32) and inputs that catch a missing mask, and
+            times kernel, plain version and
+            scaled_dot_product_attention (CUDA events, median of 25, with
+            the calls queued ahead of the card), and the wrapper's host time
+            per call;
   4. serve  loads docs/assets/flagship256_r5_fp16.npz into an Enhancer (256²,
             max_batch 8, bf16, DPM++2M-5) and answers 3 requests of 8, 8
-            and 3 images, checking outputs and that the kernel ran 20 times
-            per device call;
+            and 3 images, checking outputs and that the tensor-core kernel
+            ran 20 times per device call;
   5. path   runs the same weights at 64², batch 2, fp32, on one numpy
-            initial noise through DPM++2M-5 on the card (kernel) and on the
-            CPU (plain version), and requires PSNR ≥ 40 dB between them.
+            initial noise through DPM++2M-5 on the card (the fp32 kernel,
+            20 launches) and on the CPU (plain version), and requires
+            PSNR ≥ 40 dB between them.
 
 Every phase prints one line with its seconds. The whole run must finish
 within BUDGET_S; a phase that fails or ends past the budget stops the run
@@ -32,7 +40,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import sys
 import time
 from pathlib import Path
@@ -46,6 +53,59 @@ T_START = time.perf_counter()
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by input type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# The H100 SXM5's special-function (exp2) rate, 3.9 T/s: "989 TFLOPS of FP16
+# matmul but only 3.9 TFLOPS of special functions" (Shah et al. 2024,
+# FlashAttention-3, section 3.3). Attention computes B·h·N² exponentials.
+EXP_PER_S = 3.9e12
+
+# Kernel vs the fp32 plain version, max abs error, by dtype and inputs.
+# bf16/fp16: the kernel rounds P to the input type before P·V and the output
+# once. Its CPU emulation (tests/test_torch_attention_tiled.py) errs by at
+# most 1.8e-3 (bf16) and 2.5e-4 (fp16) on random inputs at the shapes of
+# KERNEL_CASES (|out| about 0.03 to 0.07 there), and by 4.1e-3 and 5.1e-4 on
+# the mask-trap ones (|out| about 1). Each tolerance is that error times a
+# margin of 4.4 to 5.0; it is not looser than the error calls for. An
+# unmasked padded key (error ~1 on the mask trap) fails them. fp32 differs
+# from the plain version only in summation order.
+ATOL = {("bfloat16", "randn"): 8e-3, ("bfloat16", "mask trap"): 2e-2,
+        ("float16", "randn"): 1.25e-3, ("float16", "mask trap"): 2.5e-3,
+        ("float32", "randn"): 1e-5}
+
+# The attention shapes the main paths give the kernels: the serve phase's
+# bf16 flagship (256², batch 8: N 32·32) and the path phase's fp32 run (64²,
+# batch 2: N 8·8), both with 8 heads of d 32.
+SERVE_CASE = (8, 1024, 8, 32, "bfloat16", "randn")
+PATH_CASE = (2, 64, 8, 32, "float32", "randn")
+# (B, N, h, d, dtype, inputs) of the kernel phase. The ragged N = 1000 leaves
+# 24 padded keys in the last tile: unmasked, they would dilute the softmax
+# by ~1.5% (errors ~4e-3), far past the fp32 tolerance; the mask-trap inputs
+# make the same fault an error of ~1 in bf16 and fp16.
+KERNEL_CASES = [
+    SERVE_CASE,
+    PATH_CASE,
+    (8, 1024, 8, 32, "float32", "randn"),  # the flagship shape, fp32 route
+    (8, 1024, 8, 16, "bfloat16", "randn"),
+    (8, 1024, 8, 64, "bfloat16", "randn"),
+    (8, 1000, 8, 32, "bfloat16", "randn"),  # ragged N
+    (8, 1000, 8, 32, "bfloat16", "mask trap"),
+    (8, 1000, 8, 32, "float16", "mask trap"),
+    (8, 1000, 8, 32, "float32", "randn"),   # ragged N, fp32
+    (2, 1000, 8, 64, "float32", "randn"),   # ragged N, d 64, fp32
+    (2, 1024, 8, 64, "float16", "randn"),
+    (2, 256, 8, 16, "float16", "randn"),
+]
+
+
+def mask_trap_qkv(rng, B: int, N: int, h: int, d: int):
+    """Packed (B, N, 3, h, d) float32 q|k|v whose every real score
+    q·k/√d is about −30 (q ≈ 1, k ≈ −30/√d), with v ≈ 1. A zero-filled
+    padded key that escaped the mask would score 0 and, with v 0, take
+    nearly all the weight: an error of about 1."""
+    import numpy as np
+
+    noise = 0.1 * rng.standard_normal((B, N, 3, h, d))
+    centre = np.array([1.0, -30.0 / math.sqrt(d), 1.0])[:, None, None]
+    return (centre + noise).astype(np.float32)
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -62,53 +122,58 @@ def phase_done(name: str, t0: float, detail: str = "") -> None:
              f"({total:.1f}s)", 3)
 
 
-def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
-    """Median over `reps` of the mean device time of `inner` back-to-back
-    calls, from CUDA events; warm (3 calls first)."""
-    import torch
+def phase_build(att, cuda_build, torch):
+    """Build and load the library; check its kernels' resources and that
+    the tensor-core kernels run on the tensor cores."""
+    built = att.load_kernel()
+    resources = cuda_build.kernel_resources(built.ptxas_log)
+    try:
+        cuobjdump = cuda_build.find_cuobjdump()
+        hmma = cuda_build.sass_opcode_counts(built.path, "HMMA")
+    except (RuntimeError, OSError) as e:
+        fail(f"cannot count the kernels' tensor-core instructions: {e}")
+    print(f"  nvcc {built.build_seconds:.2f}s cached={built.cached} "
+          f"{built.path.name}; SASS read with {cuobjdump}", flush=True)
+    tensor_core = 0
+    for sym, res in sorted(resources.items()):
+        inst = att.kernel_instance(sym)
+        if inst is None:
+            continue
+        name, dtype, d = inst
+        n_hmma = hmma.get(sym, 0)
+        print(f"  {name}<{str(dtype).split('.')[-1]}, d {d}>: "
+              f"{res.registers} registers, {res.spill_bytes} bytes spilled, "
+              f"{n_hmma} HMMA", flush=True)
+        if dtype != torch.float32:
+            tensor_core += 1
+            if n_hmma == 0 or res.spill_bytes:
+                fail(f"{name}<{dtype}, {d}> has {n_hmma} HMMA instructions "
+                     f"and spills {res.spill_bytes} bytes")
+    if tensor_core != 6:
+        fail(f"found {tensor_core} tensor-core kernel instances in ptxas's "
+             f"report, expected 6 (bf16 and fp16 at d 16, 32, 64)")
+    return built
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
-    return statistics.median(samples)
 
-
-def phase_kernel(att, torch):
-    """Kernel vs its plain version on the card; returns the flagship row."""
+def phase_kernel(att, torch, device_ms, host_ms):
+    """Kernels vs their plain version on the card; returns the rows."""
+    import numpy as np
     import torch.nn.functional as F
 
-    # bf16/fp16 outputs are rounded once to their type (atol ~ half an ulp
-    # at |out| < 1 plus the inputs' rounding); fp32 differs from the plain
-    # version only in summation order. The ragged N = 1000 leaves 24 padded
-    # keys in the last tile: unmasked, they would dilute the softmax by ~1.5%
-    # (errors ~4e-3), far past the fp32 tolerance.
-    cases = [  # (B, N, h, d, dtype, atol)
-        (8, 1024, 8, 32, torch.bfloat16, 2e-2),   # the flagship's middle blocks
-        (8, 1024, 8, 32, torch.float32, 1e-5),
-        (8, 1024, 8, 16, torch.bfloat16, 2e-2),
-        (8, 1000, 8, 32, torch.bfloat16, 2e-2),   # ragged N
-        (8, 1000, 8, 32, torch.float32, 1e-5),    # ragged N, fp32
-        (2, 1000, 8, 64, torch.float32, 1e-5),    # ragged N, d 64, fp32
-        (2, 1024, 8, 64, torch.float16, 5e-3),
-        (2, 256, 8, 16, torch.float16, 5e-3),
-    ]
     gen = torch.Generator("cuda").manual_seed(0)
-    rows = []
-    for B, N, h, d, dtype, atol in cases:
+    rng = np.random.default_rng(0)
+    rows = {}
+    for case in KERNEL_CASES:
+        B, N, h, d, dname, inputs = case
+        dtype = getattr(torch, dname)
+        atol = ATOL[dname, inputs]
         # Strided views of one packed projection, as the model hands them over.
-        qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen,
-                          dtype=torch.float32).to(dtype)
-        q, k, v = qkv.unbind(2)
+        if inputs == "randn":
+            qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen,
+                              dtype=torch.float32)
+        else:
+            qkv = torch.from_numpy(mask_trap_qkv(rng, B, N, h, d)).cuda()
+        q, k, v = qkv.to(dtype).unbind(2)
         before = att.launch_count
         out = att.fused_spatial_attention(q, k, v)
         torch.cuda.synchronize()
@@ -119,26 +184,30 @@ def phase_kernel(att, torch):
         err = (out.float() - ref).abs().max().item()
         if not math.isfinite(err) or err > atol:
             fail(f"attention kernel disagrees with its plain version at "
-                 f"B={B} N={N} h={h} d={d} {dtype}: max_abs_err {err} > {atol}")
+                 f"B={B} N={N} h={h} d={d} {dtype} ({inputs}): max_abs_err "
+                 f"{err} > {atol}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kernel_ms = time_ms(lambda: att.fused_spatial_attention(q, k, v))
-        plain_ms = time_ms(lambda: att.attention_reference(q, k, v), reps=5,
-                           inner=2)
-        library_ms = time_ms(
+        kernel_ms = device_ms(lambda: att.fused_spatial_attention(q, k, v))
+        kernel_host_ms = host_ms(lambda: att.fused_spatial_attention(q, k, v))
+        plain_ms = device_ms(lambda: att.attention_reference(q, k, v), reps=5,
+                             inner=2)
+        library_ms = device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        esize = q.element_size()
         flops = 4.0 * B * h * N * N * d
-        nbytes = 4.0 * B * N * h * d * esize
-        t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+        nbytes = 4.0 * B * N * h * d * q.element_size()
+        t_ops = flops / PEAK_FLOPS[dname]
         t_bytes = nbytes / HBM_BYTES_PER_S
-        row = dict(B=B, N=N, h=h, d=d, dtype=str(dtype).split(".")[-1],
+        row = dict(B=B, N=N, h=h, d=d, dtype=dname, inputs=inputs,
+                   kernel=att.KERNEL_BY_DTYPE[dtype],
                    max_abs_err=err, tol=atol, kernel_ms=kernel_ms,
+                   kernel_host_ms=kernel_host_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_us=max(t_ops, t_bytes) * 1e6,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   exp_floor_ms=B * h * N * N / EXP_PER_S * 1e3)
         print("  kernel " + json.dumps(row), flush=True)
-        rows.append(row)
-    return rows[0]
+        rows[case] = row
+    return rows
 
 
 def psnr(a, b) -> float:
@@ -161,12 +230,13 @@ def main() -> None:
     from hybrid_diffusion_tpu_torch.ops import attention as att
     from hybrid_diffusion_tpu_torch.serve import Enhancer
     from hybrid_diffusion_tpu_torch.train.loop import build_model, make_sampler
-    from hybrid_diffusion_tpu_torch.utils.cuda_build import nvidia_smi_line
+    from hybrid_diffusion_tpu_torch.utils import cuda_build
+    from hybrid_diffusion_tpu_torch.utils.timing import device_ms, host_ms
     from hybrid_diffusion_tpu_torch.weights import load_npz_state_dict
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi_line()
+    smi = cuda_build.nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     phase_done("env", t0, f"python {sys.version.split()[0]} torch "
                f"{torch.__version__} cuda {torch.version.cuda} | {smi} | "
@@ -174,17 +244,13 @@ def main() -> None:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = att.load_kernel()
-    ptxas = [ln.strip() for ln in built.ptxas_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase_done("build", t0, f"nvcc {built.build_seconds:.2f}s "
-               f"cached={built.cached} {built.path.name}")
-    for ln in ptxas:
-        print("  ptxas " + ln, flush=True)
+    built = phase_build(att, cuda_build, torch)
+    phase_done("build", t0, f"nvcc {built.build_seconds:.2f}s, every "
+               f"tensor-core kernel on HMMA with no spills")
 
     # ---------------------------------------------------------------- kernel
     t0 = time.perf_counter()
-    flagship_row = phase_kernel(att, torch)
+    rows = phase_kernel(att, torch, device_ms, host_ms)
     phase_done("kernel", t0, "all shapes within tolerance")
 
     # ---------------------------------------------------------------- serve
@@ -213,11 +279,12 @@ def main() -> None:
                 fail(f"output {o.shape} {o.dtype}, expected (256, 256, 3) uint8")
         if int(np.ptp(np.stack(outs))) == 0:
             fail("every output value is the same")
-    launches = att.launch_count
+    launches = att.launch_counts["attention_fwd"]
     calls = enh.device_calls - calls_before
-    if launches != 20 * calls:
-        fail(f"the attention kernel ran {launches} times in {calls} device "
-             f"calls on the main path, expected 20 per call")
+    if launches != 20 * calls or att.launch_count != launches:
+        fail(f"the attention kernels ran {att.launch_counts} times in {calls} "
+             f"device calls on the main path, expected the tensor-core kernel "
+             f"20 times per call and no other")
     n_img = sum(len(b) for b in requests)
     serve_s = sum(latencies)
     phase_done("serve", t0, (
@@ -240,14 +307,18 @@ def main() -> None:
         model = build_model(cfg64)
         model.load_state_dict(state, strict=True)
         model = model.to(device).eval()
-        before = att.launch_count
+        att.reset_launch_count()
         out = make_sampler(cfg64, model)(
             torch.from_numpy(cond).to(device),
             init_noise=torch.from_numpy(noise).to(device))
         outs[device] = out.cpu().numpy().astype(np.float64)
-        used = att.launch_count - before
-        if used != (20 if device == "cuda" else 0):
-            fail(f"the {device} run launched the kernel {used} times")
+        used = att.launch_counts["attention_fwd_fp32"]
+        if used != (20 if device == "cuda" else 0) or att.launch_count != used:
+            fail(f"the {device} run launched the kernels "
+                 f"{att.launch_counts} times, expected the fp32 kernel "
+                 f"{20 if device == 'cuda' else 0} times and no other")
+        if device == "cuda":
+            fp32_launches = used
     gpu, cpu = outs["cuda"], outs["cpu"]
     if gpu.shape != (2, 64, 64, 3) or not np.isfinite(gpu).all():
         fail(f"card output {gpu.shape} is not a finite (2, 64, 64, 3) image")
@@ -258,20 +329,25 @@ def main() -> None:
     phase_done("path", t0, f"64² batch 2 DPM++2M-5 fp32, card (kernel) vs CPU "
                f"(plain): max |diff| {max_diff:.3e}, PSNR {db:.2f} dB")
 
-    row = flagship_row
-    print(json.dumps({"kernels": [{
-        "name": "attention_fwd",
-        "route": "cuda",
-        "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
-        "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["kernel_ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_us"] / 1e3,
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    }]}), flush=True)
+    # Each kernel at the shape its main path gave it: bf16 on the tensor
+    # cores in the serve phase, fp32 on the SIMT kernel in the path phase.
+    kernels = []
+    for row, n in ((rows[SERVE_CASE], launches),
+                   (rows[PATH_CASE], fp32_launches)):
+        kernels.append({
+            "name": row["kernel"],
+            "route": "cuda",
+            "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
+            "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
+            "launches": n,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

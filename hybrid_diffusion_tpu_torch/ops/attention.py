@@ -6,9 +6,12 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     form of the JAX `_xla_attention` (fp32 scores and softmax). The CPU path
     and the tests use it.
   - `fused_spatial_attention`: the wrapper. A CPU tensor goes to
-    `attention_reference`; a CUDA tensor goes to the hand-written CUDA kernel
+    `attention_reference`; a CUDA tensor goes to a hand-written CUDA kernel
     in `csrc/attention.cu` (which replaces the TPU's `_pallas_attention`) or
-    the call raises. There is no fallback from the card to the plain version.
+    the call raises. bf16 and fp16 take the tensor-core kernel
+    (`attention_fwd`), fp32 the SIMT kernel (`attention_fwd_fp32`). There is
+    no fallback from the card to the plain version or from one kernel to the
+    other.
 
 Tensors are (B, N, heads, head_dim), as in the JAX package.
 """
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 
 import torch
 
@@ -25,15 +29,22 @@ from ..utils import cuda_build
 SOURCE = "attention.cu"
 HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+KERNEL_BY_DTYPE = {torch.bfloat16: "attention_fwd",
+                   torch.float16: "attention_fwd",
+                   torch.float32: "attention_fwd_fp32"}
 
-# Launches of the CUDA kernel in this process (one per launch, nowhere else).
+# Launches of the CUDA kernels in this process, one per launch and nowhere
+# else: in all, and by kernel.
 launch_count = 0
+launch_counts = dict.fromkeys(KERNEL_BY_DTYPE.values(), 0)
 _library: cuda_build.BuiltLibrary | None = None
 
 
 def reset_launch_count() -> None:
     global launch_count
     launch_count = 0
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -64,6 +75,21 @@ def load_kernel() -> cuda_build.BuiltLibrary:
     return _library
 
 
+_SYMBOL = re.compile(
+    r"(attention_fwd(?:_mma)?_kernel)I(13__nv_bfloat16|6__half|f)Li(\d+)E")
+_MANGLED_DTYPES = {"13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16,
+                   "f": torch.float32}
+
+
+def kernel_instance(symbol: str) -> tuple[str, torch.dtype, int] | None:
+    """(kernel, dtype, head_dim) of a mangled kernel symbol of this
+    library, or None for another symbol."""
+    m = _SYMBOL.search(symbol)
+    if m is None:
+        return None
+    return m.group(1), _MANGLED_DTYPES[m.group(2)], int(m.group(3))
+
+
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -87,6 +113,15 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {q.shape[-1]}")
+    if q.dtype != torch.float32:
+        # The tensor-core kernel copies 16-byte chunks of each row.
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+            if t.data_ptr() % 16 or any(s % 8 for s in strides):
+                raise ValueError(
+                    f"attention kernel ({q.dtype}) needs {name} 16-byte "
+                    f"aligned with strides in multiples of 8 elements, got "
+                    f"address {t.data_ptr():#x} and strides {t.stride()}")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
             "the CUDA attention kernel is forward only; its backward comes "
@@ -113,6 +148,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err} "
                            f"(B={B}, N={N}, h={H}, d={D}, {q.dtype})")
     launch_count += 1
+    launch_counts[KERNEL_BY_DTYPE[q.dtype]] += 1
     return out
 
 
@@ -120,7 +156,7 @@ def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """Scaled-dot-product attention over (B, N, heads, head_dim) tensors.
 
-    CPU tensors take the plain version; CUDA tensors take the CUDA kernel.
+    CPU tensors take the plain version; CUDA tensors take a CUDA kernel.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v)

@@ -35,7 +35,7 @@ CALLS = 5
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if "attention_fwd_kernel" in n:
+    if "attention_fwd" in n:  # attention_fwd_mma_kernel on this bf16 path
         return "attention (CUDA kernel)"
     if any(k in n for k in ("conv", "implicit_gemm", "xmma_fprop", "fprop",
                             "winograd", "nchwtonhwc", "nhwctonchw")):

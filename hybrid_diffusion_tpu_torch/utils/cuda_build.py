@@ -5,16 +5,21 @@ Each kernel source under `csrc/` has a plain C interface. It is compiled by
 first time a CUDA tensor needs it, and loaded with `ctypes`. The library's
 file name carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
-`nvidia_smi_line` reads the card's name and power limit, which every
-measurement script prints beside its numbers.
+`kernel_resources` reads each kernel's registers and spills from ptxas's
+report, `sass_opcode_counts` counts an instruction in each kernel's machine
+code (`cuobjdump -sass`), and `nvidia_smi_line` reads the card's name and
+power limit, which every measurement script prints beside its numbers.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -86,6 +91,63 @@ def build(source_name: str) -> BuiltLibrary:
     log = proc.stdout + proc.stderr
     log_path.write_text(log)
     return BuiltLibrary(ctypes.CDLL(str(so_path)), so_path, False, seconds, log)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelResources:
+    registers: int
+    spill_bytes: int  # spill stores + spill loads
+
+
+def kernel_resources(ptxas_log: str) -> dict[str, KernelResources]:
+    """Per kernel symbol, what `-Xptxas -v` reported for it."""
+    found: dict[str, dict[str, int]] = {}
+    current = None
+    for line in ptxas_log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            current = found.setdefault(m.group(1), {"regs": 0, "spill": 0})
+        elif current is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            line):
+            current["spill"] = int(m.group(1)) + int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            current["regs"] = int(m.group(1))
+    return {k: KernelResources(v["regs"], v["spill"])
+            for k, v in found.items()}
+
+
+def find_cuobjdump() -> str:
+    """`cuobjdump` beside nvcc, else the copy in Triton's package."""
+    candidate = Path(find_nvcc()).parent / "cuobjdump"
+    if candidate.exists():
+        return str(candidate)
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin is not None:
+        candidate = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                     / "cuobjdump")
+        if candidate.exists():
+            return str(candidate)
+    raise RuntimeError("cuobjdump not found beside nvcc or in Triton's "
+                       "triton/backends/nvidia/bin/")
+
+
+def sass_opcode_counts(so_path: Path, opcode: str) -> dict[str, int]:
+    """Per kernel symbol in the library, the count of SASS instructions
+    whose opcode starts with `opcode` (e.g. "HMMA")."""
+    out = subprocess.run([find_cuobjdump(), "-sass", str(so_path)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts: dict[str, int] = collections.Counter()
+    current = None
+    pattern = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?" + re.escape(opcode) + r"\b")
+    for line in out.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            current = m.group(1)
+            counts[current] += 0
+        elif current is not None and pattern.search(line):
+            counts[current] += 1
+    return dict(counts)
 
 
 def nvidia_smi_line() -> str:

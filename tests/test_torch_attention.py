@@ -76,6 +76,15 @@ def _bad_inputs():
                                v.transpose(2, 3)), ValueError
     yield "rank", (q[0], k[0], v[0]), ValueError
     yield "grad", (q.clone().requires_grad_(), k, v), NotImplementedError
+    # The bf16/fp16 (tensor-core) kernel copies 16-byte chunks: it refuses a
+    # misaligned pointer or a stride that is not a multiple of 8 elements.
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[-1]
+        flat = torch.zeros(1 * 8 * 2 * 16 + 1, dtype=dtype)
+        shifted = flat[1:].view(1, 8, 2, 16)
+        yield f"{name} address", (shifted, shifted, shifted), ValueError
+        wide = torch.zeros(1, 8, 2, 20, dtype=dtype)[..., :16]
+        yield f"{name} stride", (wide, wide, wide), ValueError
 
 
 @pytest.mark.parametrize("case", list(_bad_inputs()), ids=lambda c: c[0])
@@ -84,3 +93,14 @@ def test_kernel_input_checks_raise(case):
     _, args, exc = case
     with pytest.raises(exc):
         port_attention._check_cuda_inputs(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_packed_qkv_views_meet_the_tensor_core_preconditions(d, dtype):
+    """The model's strided q|k|v views of one packed projection (ragged N
+    included) pass the 16-byte checks at every head_dim."""
+    packed = torch.zeros(2, 1000, 3, 8, d, dtype=dtype)
+    q, k, v = packed.unbind(2)
+    port_attention._check_cuda_inputs(q, k, v)
