@@ -10,25 +10,29 @@ From a clean checkout, with no arguments, it:
             cuDNN, so that every fp32 number below is full fp32;
   2. build  compiles the CUDA attention kernels with nvcc (or reuses the
             library built from the same source) and loads them; prints each
-            kernel's registers and spills (ptxas) and its
-            count of HMMA (tensor-core) instructions (cuobjdump -sass), and
-            fails if a tensor-core kernel has none or spills;
+            of the 11 kernel instances' (bf16, fp16 at d 16, 32, 64; fp32
+            at d 16 and 32 with one and two m16 tiles a warp, and at d 64)
+            registers and spills (ptxas) and its count of HMMA
+            (tensor-core) instructions (cuobjdump -sass), and fails if one
+            has none or spills;
   3. kernel holds the kernels against their plain PyTorch version on the
-            card at the shapes the serve and path phases give them (and the
-            flagship shape in fp32), at bf16 / fp16, d = 16 / 64, a ragged N
-            (in bf16 and fp32) and inputs that catch a missing mask, and
-            times kernel, plain version and
+            card at the shapes the serve and path phases give them, at
+            bf16 / fp16 / fp32, d = 16 / 64, a ragged N and inputs that
+            catch a missing mask, and times kernel, plain version and
             scaled_dot_product_attention (CUDA events, median of 25, with
             the calls queued ahead of the card), and the wrapper's host time
             per call;
   4. serve  loads docs/assets/flagship256_r5_fp16.npz into an Enhancer (256²,
             max_batch 8, bf16, DPM++2M-5) and answers 3 requests of 8, 8
-            and 3 images, checking outputs and that the tensor-core kernel
-            ran 20 times per device call;
-  5. path   runs the same weights at 64², batch 2, fp32, on one numpy
-            initial noise through DPM++2M-5 on the card (the fp32 kernel,
-            20 launches) and on the CPU (plain version), and requires
-            PSNR ≥ 40 dB between them.
+            and 3 images, checking outputs and that the bf16 kernel ran 20
+            times per device call; then answers one request of 8 from an
+            fp32 Enhancer (bf16=False), which must launch the fp32 kernel
+            20 times;
+  5. path   runs the same weights at 64², batch 2, on one numpy initial
+            noise through DPM++2M-5 on the card in fp32 (the fp32 kernel)
+            and in bf16 (the bf16 kernel), 20 launches each, and on the CPU
+            in fp32 (plain version), and requires PSNR ≥ 40 dB (fp32) and
+            ≥ 38 dB (bf16) against the CPU.
 
 Every phase prints one line with its seconds. The whole run must finish
 within BUDGET_S; a phase that fails or ends past the budget stops the run
@@ -38,6 +42,7 @@ card's nvidia-smi line and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -50,9 +55,15 @@ FLAGSHIP_NPZ = ROOT / "docs" / "assets" / "flagship256_r5_fp16.npz"
 BUDGET_S = 300.0
 T_START = time.perf_counter()
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by input type.
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, and FLOP/s of the
+# products by input type. The bound counts the products the function needs,
+# 4·B·h·N²·d, at the card's fastest rate for the type: fp32 products at the
+# TF32 tensor cores' 495 TFLOP/s, not the FMA units' 67. The fp32 kernel's
+# own design, three TF32 products a product (3xTF32), has a floor three
+# times that, printed beside it (tf32x3_floor_ms) and not used as the bound:
+# another split (for example fp16 parts with scaling) could need less.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12}
 # The H100 SXM5's special-function (exp2) rate, 3.9 T/s: "989 TFLOPS of FP16
 # matmul but only 3.9 TFLOPS of special functions" (Shah et al. 2024,
 # FlashAttention-3, section 3.3). Attention computes B·h·N² exponentials.
@@ -65,16 +76,19 @@ EXP_PER_S = 3.9e12
 # KERNEL_CASES (|out| about 0.03 to 0.07 there), and by 4.1e-3 and 5.1e-4 on
 # the mask-trap ones (|out| about 1). Each tolerance is that error times a
 # margin of 4.4 to 5.0; it is not looser than the error calls for. An
-# unmasked padded key (error ~1 on the mask trap) fails them. fp32 differs
-# from the plain version only in summation order.
+# unmasked padded key (error ~1 on the mask trap) fails them. fp32: each
+# product is three TF32 products (about 2^-21 relative); the CPU emulation
+# (tests/test_torch_attention_tf32.py) errs by at most 8.1e-7 on the fp32
+# cases, a twelfth of 1e-5, and a single TF32 product by 2.4e-4 to 6.6e-4.
 ATOL = {("bfloat16", "randn"): 8e-3, ("bfloat16", "mask trap"): 2e-2,
         ("float16", "randn"): 1.25e-3, ("float16", "mask trap"): 2.5e-3,
         ("float32", "randn"): 1e-5}
 
 # The attention shapes the main paths give the kernels: the serve phase's
-# bf16 flagship (256², batch 8: N 32·32) and the path phase's fp32 run (64²,
-# batch 2: N 8·8), both with 8 heads of d 32.
+# flagship (256², batch 8: N 32·32) in bf16 and in fp32 (bf16=False), and the
+# path phase's fp32 run (64², batch 2: N 8·8), all with 8 heads of d 32.
 SERVE_CASE = (8, 1024, 8, 32, "bfloat16", "randn")
+FP32_SERVE_CASE = (8, 1024, 8, 32, "float32", "randn")
 PATH_CASE = (2, 64, 8, 32, "float32", "randn")
 # (B, N, h, d, dtype, inputs) of the kernel phase. The ragged N = 1000 leaves
 # 24 padded keys in the last tile: unmasked, they would dilute the softmax
@@ -83,7 +97,7 @@ PATH_CASE = (2, 64, 8, 32, "float32", "randn")
 KERNEL_CASES = [
     SERVE_CASE,
     PATH_CASE,
-    (8, 1024, 8, 32, "float32", "randn"),  # the flagship shape, fp32 route
+    FP32_SERVE_CASE,
     (8, 1024, 8, 16, "bfloat16", "randn"),
     (8, 1024, 8, 64, "bfloat16", "randn"),
     (8, 1000, 8, 32, "bfloat16", "randn"),  # ragged N
@@ -91,9 +105,19 @@ KERNEL_CASES = [
     (8, 1000, 8, 32, "float16", "mask trap"),
     (8, 1000, 8, 32, "float32", "randn"),   # ragged N, fp32
     (2, 1000, 8, 64, "float32", "randn"),   # ragged N, d 64, fp32
+    (2, 256, 8, 16, "float32", "randn"),    # d 16, fp32
     (2, 1024, 8, 64, "float16", "randn"),
     (2, 256, 8, 16, "float16", "randn"),
 ]
+
+# The path phase's limits on PSNR against the CPU's fp32 sampler (64², batch
+# 2, DPM++2M-5). fp32: the same arithmetic summed in another order (112.38 dB
+# measured on the H100). bf16: the CPU port's bf16 sampler measured
+# 42.99 dB against the JAX fp32 one on these inputs, and JAX's own bf16
+# sampler 42.34 dB; 38 dB leaves about 5 dB for the card's other rounding
+# (cuDNN's bf16 convolutions, the tensor-core attention).
+PATH_PSNR_FP32_DB = 40.0
+PATH_PSNR_BF16_DB = 38.0
 
 
 def mask_trap_qkv(rng, B: int, N: int, h: int, d: int):
@@ -122,9 +146,9 @@ def phase_done(name: str, t0: float, detail: str = "") -> None:
              f"({total:.1f}s)", 3)
 
 
-def phase_build(att, cuda_build, torch):
+def phase_build(att, cuda_build):
     """Build and load the library; check its kernels' resources and that
-    the tensor-core kernels run on the tensor cores."""
+    every kernel runs on the tensor cores."""
     built = att.load_kernel()
     resources = cuda_build.kernel_resources(built.ptxas_log)
     try:
@@ -144,14 +168,14 @@ def phase_build(att, cuda_build, torch):
         print(f"  {name}<{str(dtype).split('.')[-1]}, d {d}>: "
               f"{res.registers} registers, {res.spill_bytes} bytes spilled, "
               f"{n_hmma} HMMA", flush=True)
-        if dtype != torch.float32:
-            tensor_core += 1
-            if n_hmma == 0 or res.spill_bytes:
-                fail(f"{name}<{dtype}, {d}> has {n_hmma} HMMA instructions "
-                     f"and spills {res.spill_bytes} bytes")
-    if tensor_core != 6:
+        tensor_core += 1
+        if n_hmma == 0 or res.spill_bytes:
+            fail(f"{name}<{dtype}, {d}> has {n_hmma} HMMA instructions "
+                 f"and spills {res.spill_bytes} bytes")
+    if tensor_core != 11:
         fail(f"found {tensor_core} tensor-core kernel instances in ptxas's "
-             f"report, expected 6 (bf16 and fp16 at d 16, 32, 64)")
+             f"report, expected 11 (bf16, fp16 at d 16, 32, 64; fp32 twice "
+             f"at d 16 and 32, once at d 64)")
     return built
 
 
@@ -205,6 +229,8 @@ def phase_kernel(att, torch, device_ms, host_ms):
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    exp_floor_ms=B * h * N * N / EXP_PER_S * 1e3)
+        if dname == "float32":
+            row["tf32x3_floor_ms"] = 3 * t_ops * 1e3
         print("  kernel " + json.dumps(row), flush=True)
         rows[case] = row
     return rows
@@ -244,9 +270,9 @@ def main() -> None:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = phase_build(att, cuda_build, torch)
+    built = phase_build(att, cuda_build)
     phase_done("build", t0, f"nvcc {built.build_seconds:.2f}s, every "
-               f"tensor-core kernel on HMMA with no spills")
+               f"kernel on HMMA with no spills")
 
     # ---------------------------------------------------------------- kernel
     t0 = time.perf_counter()
@@ -287,13 +313,31 @@ def main() -> None:
              f"20 times per call and no other")
     n_img = sum(len(b) for b in requests)
     serve_s = sum(latencies)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del enh
+
+    # The full-precision serving mode (bf16=False) at full width: one
+    # request of 8 through the fp32 kernel.
+    enh32 = Enhancer(flagship_config(bf16=False), FLAGSHIP_NPZ, max_batch=8,
+                     device="cuda")
+    att.reset_launch_count()
+    t_req = time.perf_counter()
+    outs = enh32.enhance(list(requests[0]))
+    fp32_ms = (time.perf_counter() - t_req) * 1e3
+    fp32_serve_launches = att.launch_counts["attention_fwd_fp32"]
+    if fp32_serve_launches != 20 or att.launch_count != 20:
+        fail(f"the fp32 request launched the kernels {att.launch_counts} "
+             f"times, expected the fp32 kernel 20 times and no other")
+    if len(outs) != 8 or int(np.ptp(np.stack(outs))) == 0:
+        fail("the fp32 request gave no or constant outputs")
+    del enh32
     phase_done("serve", t0, (
-        f"{n_img} images in {calls} calls, {serve_s:.3f}s, "
+        f"bf16: {n_img} images in {calls} calls, {serve_s:.3f}s, "
         f"{n_img / serve_s:.2f} img/s, call latencies "
         f"{[round(x * 1e3, 1) for x in latencies]} ms, attention launches "
         f"{launches} ({launches // calls} per call), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"))
-    del enh
+        f"{peak_gib:.2f} GiB; fp32: one call of 8 {fp32_ms:.1f} ms, "
+        f"{fp32_serve_launches} fp32 attention launches | {smi}"))
 
     # ---------------------------------------------------------------- path
     t0 = time.perf_counter()
@@ -303,37 +347,45 @@ def main() -> None:
     cond = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     noise = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
     outs = {}
-    for device in ("cuda", "cpu"):
-        model = build_model(cfg64)
+    # (device, bf16, the kernel the card run must launch 20 times)
+    for device, bf16, kernel in (("cuda", False, "attention_fwd_fp32"),
+                                 ("cuda", True, "attention_fwd"),
+                                 ("cpu", False, None)):
+        cfg = dataclasses.replace(cfg64, bf16=bf16)
+        model = build_model(cfg)
         model.load_state_dict(state, strict=True)
         model = model.to(device).eval()
         att.reset_launch_count()
-        out = make_sampler(cfg64, model)(
+        out = make_sampler(cfg, model)(
             torch.from_numpy(cond).to(device),
             init_noise=torch.from_numpy(noise).to(device))
-        outs[device] = out.cpu().numpy().astype(np.float64)
-        used = att.launch_counts["attention_fwd_fp32"]
-        if used != (20 if device == "cuda" else 0) or att.launch_count != used:
-            fail(f"the {device} run launched the kernels "
-                 f"{att.launch_counts} times, expected the fp32 kernel "
-                 f"{20 if device == 'cuda' else 0} times and no other")
-        if device == "cuda":
-            fp32_launches = used
-    gpu, cpu = outs["cuda"], outs["cpu"]
-    if gpu.shape != (2, 64, 64, 3) or not np.isfinite(gpu).all():
-        fail(f"card output {gpu.shape} is not a finite (2, 64, 64, 3) image")
-    max_diff = float(np.abs(gpu - cpu).max())
-    db = psnr(gpu, cpu)
-    if db < 40.0:
-        fail(f"card vs CPU PSNR {db:.2f} dB < 40 dB (max |diff| {max_diff})")
-    phase_done("path", t0, f"64² batch 2 DPM++2M-5 fp32, card (kernel) vs CPU "
-               f"(plain): max |diff| {max_diff:.3e}, PSNR {db:.2f} dB")
+        outs[device, bf16] = out.float().cpu().numpy().astype(np.float64)
+        want = {kernel: 20} if kernel else {}
+        if {k: n for k, n in att.launch_counts.items() if n} != want:
+            fail(f"the {device} run (bf16={bf16}) launched the kernels "
+                 f"{att.launch_counts} times, expected {want}")
+    cpu = outs["cpu", False]
+    detail = []
+    for bf16, limit in ((False, PATH_PSNR_FP32_DB), (True, PATH_PSNR_BF16_DB)):
+        gpu = outs["cuda", bf16]
+        if gpu.shape != (2, 64, 64, 3) or not np.isfinite(gpu).all():
+            fail(f"card output {gpu.shape} is not a finite (2, 64, 64, 3) "
+                 f"image (bf16={bf16})")
+        max_diff = float(np.abs(gpu - cpu).max())
+        db = psnr(gpu, cpu)
+        name = "bf16" if bf16 else "fp32"
+        if db < limit:
+            fail(f"card {name} vs CPU fp32 PSNR {db:.2f} dB < {limit} dB "
+                 f"(max |diff| {max_diff})")
+        detail.append(f"card {name} vs CPU fp32: max |diff| {max_diff:.3e}, "
+                      f"PSNR {db:.2f} dB (limit {limit})")
+    phase_done("path", t0, "64² batch 2 DPM++2M-5; " + "; ".join(detail))
 
-    # Each kernel at the shape its main path gave it: bf16 on the tensor
-    # cores in the serve phase, fp32 on the SIMT kernel in the path phase.
+    # Each kernel at the shape the serve phase gave it, with its launches
+    # there: bf16 in the bf16 calls, fp32 in the full-precision request.
     kernels = []
     for row, n in ((rows[SERVE_CASE], launches),
-                   (rows[PATH_CASE], fp32_launches)):
+                   (rows[FP32_SERVE_CASE], fp32_serve_launches)):
         kernels.append({
             "name": row["kernel"],
             "route": "cuda",

@@ -8,9 +8,10 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
   - `fused_spatial_attention`: the wrapper. A CPU tensor goes to
     `attention_reference`; a CUDA tensor goes to a hand-written CUDA kernel
     in `csrc/attention.cu` (which replaces the TPU's `_pallas_attention`) or
-    the call raises. bf16 and fp16 take the tensor-core kernel
-    (`attention_fwd`), fp32 the SIMT kernel (`attention_fwd_fp32`). There is
-    no fallback from the card to the plain version or from one kernel to the
+    the call raises. Both kernels run on the tensor cores: bf16 and fp16
+    take `attention_fwd` (16-bit products), fp32 takes `attention_fwd_fp32`
+    (each product as three TF32 products, fp32-accurate). There is no
+    fallback from the card to the plain version or from one kernel to the
     other.
 
 Tensors are (B, N, heads, head_dim), as in the JAX package.
@@ -62,32 +63,42 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def bind(lib: ctypes.CDLL):
+    """The library's `hd_attention_fwd`, with its C signature set."""
+    fn = lib.hd_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def load_kernel() -> cuda_build.BuiltLibrary:
     """Build (at first use) and load the CUDA attention library."""
     global _library
     if _library is None:
         built = cuda_build.build(SOURCE)
-        fn = built.lib.hd_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        bind(built.lib)
         _library = built
     return _library
 
 
-_SYMBOL = re.compile(
-    r"(attention_fwd(?:_mma)?_kernel)I(13__nv_bfloat16|6__half|f)Li(\d+)E")
-_MANGLED_DTYPES = {"13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16,
-                   "f": torch.float32}
+# attention_fwd_mma_kernel<T, D> (bf16, fp16) and
+# attention_fwd_tf32_kernel<D, M16 tiles a warp> (fp32), mangled.
+_SYMBOL = re.compile(r"(attention_fwd_mma_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E"
+                     r"|(attention_fwd_tf32_kernel)ILi(\d+)ELi(\d+)E")
+_MANGLED_DTYPES = {"13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
 
 
 def kernel_instance(symbol: str) -> tuple[str, torch.dtype, int] | None:
     """(kernel, dtype, head_dim) of a mangled kernel symbol of this
-    library, or None for another symbol."""
+    library, or None for another symbol. The fp32 kernel's name carries its
+    m16 tiles a warp: `attention_fwd_tf32_kernel/m2`."""
     m = _SYMBOL.search(symbol)
     if m is None:
         return None
-    return m.group(1), _MANGLED_DTYPES[m.group(2)], int(m.group(3))
+    if m.group(1):
+        return m.group(1), _MANGLED_DTYPES[m.group(2)], int(m.group(3))
+    return f"{m.group(4)}/m{m.group(6)}", torch.float32, int(m.group(5))
 
 
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -113,29 +124,30 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {q.shape[-1]}")
-    if q.dtype != torch.float32:
-        # The tensor-core kernel copies 16-byte chunks of each row.
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-            if t.data_ptr() % 16 or any(s % 8 for s in strides):
-                raise ValueError(
-                    f"attention kernel ({q.dtype}) needs {name} 16-byte "
-                    f"aligned with strides in multiples of 8 elements, got "
-                    f"address {t.data_ptr():#x} and strides {t.stride()}")
+    # Both kernels copy 16-byte chunks of each row: 8 elements of bf16 or
+    # fp16, 4 of fp32.
+    per_chunk = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(s % per_chunk for s in strides):
+            raise ValueError(
+                f"attention kernel ({q.dtype}) needs {name} 16-byte aligned "
+                f"with strides in multiples of {per_chunk} elements, got "
+                f"address {t.data_ptr():#x} and strides {t.stride()}")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
             "the CUDA attention kernel is forward only; its backward comes "
             "with the training slice (ROADMAP.md, queue 2, kernel 1)")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    global launch_count
-    _check_cuda_inputs(q, k, v)
+def call_library(fn, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """One call of a library's `hd_attention_fwd` (`fn`, as `bind` gives
+    it) on checked CUDA tensors; counts nothing."""
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = load_kernel().lib.hd_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -147,6 +159,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err} "
                            f"(B={B}, N={N}, h={H}, d={D}, {q.dtype})")
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    global launch_count
+    _check_cuda_inputs(q, k, v)
+    out = call_library(load_kernel().lib.hd_attention_fwd, q, k, v)
+    if out.numel() == 0:
+        return out
     launch_count += 1
     launch_counts[KERNEL_BY_DTYPE[q.dtype]] += 1
     return out

@@ -1,9 +1,13 @@
 """Where one flagship serving call spends its device time.
 
-    python -m hybrid_diffusion_tpu_torch.profile_serve
+    python -m hybrid_diffusion_tpu_torch.profile_serve [--fp32 [--keep-tf32]]
 
 Builds the flagship Enhancer (256², bf16, DPM++2M-5, the r5 flagship npz,
-batch 8) on the card, times CALLS warm device calls with the host clock
+batch 8) on the card, or with --fp32 its full-precision mode (bf16=False,
+with TF32 off for matmuls and cuDNN as in chip_smoke.py, so that every
+product is fp32-accurate; with --keep-tf32, PyTorch's defaults instead,
+under which cuDNN runs the convolutions on TF32: what a process that sets
+nothing gets from Enhancer(bf16=False)), times CALLS warm device calls with the host clock
 (each ends in a copy to the host), then traces one more call with
 torch.profiler and prints the device time by kernel class (attention
 kernel, convolutions, matrix products, GroupNorm, copies and casts, other
@@ -13,6 +17,7 @@ call. Prints one JSON line last.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import statistics
@@ -35,7 +40,7 @@ CALLS = 5
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if "attention_fwd" in n:  # attention_fwd_mma_kernel on this bf16 path
+    if "attention_fwd" in n:  # attention_fwd_{mma,tf32}_kernel
         return "attention (CUDA kernel)"
     if any(k in n for k in ("conv", "implicit_gemm", "xmma_fprop", "fprop",
                             "winograd", "nchwtonhwc", "nhwctonchw")):
@@ -51,8 +56,21 @@ def kernel_class(name: str) -> str:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--fp32", action="store_true",
+                        help="serve in fp32 (bf16=False), TF32 off")
+    parser.add_argument("--keep-tf32", action="store_true",
+                        help="with --fp32: keep PyTorch's TF32 defaults")
+    args = parser.parse_args()
+    fp32 = args.fp32
+    if fp32 and not args.keep_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    tf32 = (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+            f"cuDNN {torch.backends.cudnn.allow_tf32}")
     smi = nvidia_smi_line()
-    enh = Enhancer(flagship_config(), FLAGSHIP_NPZ, max_batch=BATCH)
+    enh = Enhancer(flagship_config(bf16=not fp32), FLAGSHIP_NPZ,
+                   max_batch=BATCH)
     rng = np.random.default_rng(0)
     batch = list(rng.integers(0, 256, (BATCH, 256, 256, 3), dtype=np.uint8))
 
@@ -86,7 +104,7 @@ def main() -> None:
     for name, us in by_kernel.items():
         by_class[kernel_class(name)] += us
 
-    print(f"card: {smi}")
+    print(f"card: {smi}; {'fp32' if fp32 else 'bf16'}; {tf32}")
     print(f"untraced call: median {statistics.median(walls) * 1e3:.2f} ms "
           f"over {CALLS} (batch {BATCH}, "
           f"{BATCH / statistics.median(walls):.2f} img/s)")
@@ -100,7 +118,8 @@ def main() -> None:
     for name, us in by_kernel.most_common(12):
         print(f"  {us / 1e3:9.3f} ms  x{counts[name]:<5d} {name[:110]}")
     print(json.dumps({
-        "card": smi, "batch": BATCH,
+        "card": smi, "batch": BATCH, "dtype": "fp32" if fp32 else "bf16",
+        "tf32": tf32,
         "call_ms_median": statistics.median(walls) * 1e3,
         "call_ms": [w * 1e3 for w in walls],
         "traced_call_ms": traced_wall * 1e3,

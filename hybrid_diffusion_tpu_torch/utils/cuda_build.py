@@ -57,8 +57,9 @@ def find_nvcc() -> str:
                        "or set CUDA_HOME")
 
 
-def build(source_name: str) -> BuiltLibrary:
-    """Compile `csrc/<source_name>` (if its hash changed) and load it."""
+def build(source_name: str | Path) -> BuiltLibrary:
+    """Compile `csrc/<source_name>` (if its hash changed) and load it; an
+    absolute path names a source elsewhere."""
     src = CSRC_DIR / source_name
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     stem = f"{src.stem}_{digest.hexdigest()[:16]}"

@@ -85,6 +85,15 @@ def _bad_inputs():
         yield f"{name} address", (shifted, shifted, shifted), ValueError
         wide = torch.zeros(1, 8, 2, 20, dtype=dtype)[..., :16]
         yield f"{name} stride", (wide, wide, wide), ValueError
+    # So does the fp32 kernel, with strides in multiples of 4 elements: a
+    # pointer 8 bytes off, a head stride of 18 and a token stride of 66.
+    flat = torch.zeros(1 * 8 * 2 * 16 + 2)
+    shifted = flat[2:].view(1, 8, 2, 16)
+    yield "float32 address", (shifted, shifted, shifted), ValueError
+    wide = torch.zeros(1, 8, 2, 18)[..., :16]
+    yield "float32 head stride", (wide, wide, wide), ValueError
+    rows = torch.zeros(1, 8, 66)[..., :32].view(1, 8, 2, 16)
+    yield "float32 token stride", (rows, rows, rows), ValueError
 
 
 @pytest.mark.parametrize("case", list(_bad_inputs()), ids=lambda c: c[0])
@@ -95,8 +104,9 @@ def test_kernel_input_checks_raise(case):
         port_attention._check_cuda_inputs(*args)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
-                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
 @pytest.mark.parametrize("d", [16, 32, 64])
 def test_packed_qkv_views_meet_the_tensor_core_preconditions(d, dtype):
     """The model's strided q|k|v views of one packed projection (ragged N
