@@ -32,7 +32,30 @@ From a clean checkout, with no arguments, it:
             noise through DPM++2M-5 on the card in fp32 (the fp32 kernel)
             and in bf16 (the bf16 kernel), 20 launches each, and on the CPU
             in fp32 (plain version), and requires PSNR ≥ 40 dB (fp32) and
-            ≥ 38 dB (bf16) against the CPU.
+            ≥ 38 dB (bf16) against the CPU;
+  6. train  takes TRAIN_STEPS training steps at the flagship width (256²,
+            batch 16, bf16, the default composite loss with the DINO term
+            on a random-init ViT-S at 252², dropout 0.15, domain routing,
+            EMA 0.99875, lr 1e-5, warm-started from the r5 npz) on numpy
+            batches that alternate blue- and red-heavy; each step must give
+            finite losses, launch the bf16 kernel 4 times and no other
+            kernel, and leave the gated-off middle blocks' parameters and
+            AdamW moments bit for bit as they were while the open ones move;
+            prints the median step time after the first, the peak memory
+            and the card's nvidia-smi line;
+  7. tparity one fp32 step (TF32 off) at 64², batch 2, from the npz, dropout
+            0, fixed t and noise, on the card and on the CPU: the losses
+            within TRAIN_LOSS_RTOL and the gradients' difference within
+            max(TRAIN_GRAD_FLOOR, 10 κ) of their norm, κ being the CPU
+            step's own change when every weight moves by one ulp; prints
+            the same step on the card with TF32 on beside that bound.
+
+The kernel phase also holds the attention's forward and gradients (the
+kernel's forward inside the autograd Function, the backward recomputed
+through the plain version) against the plain version's at the training
+shape (16, 1024, 8, 32) in bf16 and at (2, 64, 8, 32) in fp32, on strided
+views of one packed projection, and times forward + backward against
+scaled_dot_product_attention's.
 
 Every phase prints one line with its seconds. The whole run must finish
 within BUDGET_S; a phase that fails or ends past the budget stops the run
@@ -85,11 +108,13 @@ ATOL = {("bfloat16", "randn"): 8e-3, ("bfloat16", "mask trap"): 2e-2,
         ("float32", "randn"): 1e-5}
 
 # The attention shapes the main paths give the kernels: the serve phase's
-# flagship (256², batch 8: N 32·32) in bf16 and in fp32 (bf16=False), and the
-# path phase's fp32 run (64², batch 2: N 8·8), all with 8 heads of d 32.
+# flagship (256², batch 8: N 32·32) in bf16 and in fp32 (bf16=False), the
+# path phase's fp32 run (64², batch 2: N 8·8) and the train phase's flagship
+# (256², batch 16) in bf16, all with 8 heads of d 32.
 SERVE_CASE = (8, 1024, 8, 32, "bfloat16", "randn")
 FP32_SERVE_CASE = (8, 1024, 8, 32, "float32", "randn")
 PATH_CASE = (2, 64, 8, 32, "float32", "randn")
+TRAIN_CASE = (16, 1024, 8, 32, "bfloat16", "randn")
 # (B, N, h, d, dtype, inputs) of the kernel phase. The ragged N = 1000 leaves
 # 24 padded keys in the last tile: unmasked, they would dilute the softmax
 # by ~1.5% (errors ~4e-3), far past the fp32 tolerance; the mask-trap inputs
@@ -98,6 +123,7 @@ KERNEL_CASES = [
     SERVE_CASE,
     PATH_CASE,
     FP32_SERVE_CASE,
+    TRAIN_CASE,
     (8, 1024, 8, 16, "bfloat16", "randn"),
     (8, 1024, 8, 64, "bfloat16", "randn"),
     (8, 1000, 8, 32, "bfloat16", "randn"),  # ragged N
@@ -109,6 +135,27 @@ KERNEL_CASES = [
     (2, 1024, 8, 64, "float16", "randn"),
     (2, 256, 8, 16, "float16", "randn"),
 ]
+
+# The attention's training shapes: the train phase's flagship (256², batch
+# 16: N 32·32) in bf16, and the tparity phase's fp32 (64², batch 2: N 8·8).
+# The Function's forward is the kernel's, held against the fp32 plain
+# version at ATOL; its gradients against the plain version's autograd at the
+# same dtype: its backward IS the plain version's, at the saved inputs, so
+# they agree but for the order the card sums in (0 measured on the CPU).
+TRAIN_GRAD_CASES = [TRAIN_CASE[:5], (2, 64, 8, 32, "float32")]
+GRAD_RTOL = {"bfloat16": 2.0 ** -8, "float32": 1e-6}
+
+# The train phase's steps (the first one warms up and is left out of the
+# median); its settings are profile_train.py's FINE_TUNE: batch 16, the r5
+# flagship's EMA decay and warm-start lr, dropout 0.15.
+TRAIN_STEPS = 5
+# The tparity phase's bounds. The loss: fp32 summed in another order (the
+# CPU tests hold the port's loss to JAX's at 1e-5). The gradients: ten times
+# κ, the change of the CPU step's gradients when every weight moves by one
+# ulp, measured in the same run (1.05e-5 on the H100, the card's difference
+# 1.51e-5), and never below TRAIN_GRAD_FLOOR.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_FLOOR = 1e-4
 
 # The path phase's limits on PSNR against the CPU's fp32 sampler (64², batch
 # 2, DPM++2M-5). fp32: the same arithmetic summed in another order (112.38 dB
@@ -236,6 +283,215 @@ def phase_kernel(att, torch, device_ms, host_ms):
     return rows
 
 
+def phase_grad(att, torch, device_ms):
+    """The attention's gradients through the autograd Function against the
+    plain version's autograd, and forward + backward timed against SDPA's,
+    at the training shapes; returns rows by (B, N, h, d, dtype)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    rows = {}
+    for B, N, h, d, dname in TRAIN_GRAD_CASES:
+        dtype = getattr(torch, dname)
+        qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen)
+        qkv = qkv.to(dtype).requires_grad_()
+        g = torch.randn(B, N, h, d, device="cuda", generator=gen).to(dtype)
+
+        def kernel_fwd_bwd():
+            out = att.fused_spatial_attention(*qkv.unbind(2))
+            return out, torch.autograd.grad(out, qkv, g)[0]
+
+        def plain_fwd_bwd(x=qkv, grad=g):
+            out = att.attention_reference(*x.unbind(2))
+            return out, torch.autograd.grad(out, x, grad)[0]
+
+        def sdpa_fwd_bwd():
+            q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+            out = F.scaled_dot_product_attention(q, k, v)
+            return out, torch.autograd.grad(out, qkv, g.transpose(1, 2))[0]
+
+        before = att.launch_count
+        out, grad = kernel_fwd_bwd()
+        torch.cuda.synchronize()
+        if att.launch_count != before + 1:
+            fail(f"forward + backward launched the kernel "
+                 f"{att.launch_count - before} times, expected once")
+        with torch.no_grad():
+            fwd_ref = att.attention_reference(
+                *qkv.detach().float().unbind(2))
+        fwd_err = (out.detach().float() - fwd_ref).abs().max().item()
+        fwd_tol = ATOL[dname, "randn"]
+        if not math.isfinite(fwd_err) or fwd_err > fwd_tol:
+            fail(f"the Function's forward (the kernel) disagrees with the "
+                 f"fp32 plain version at B={B} N={N} h={h} d={d} {dtype}: "
+                 f"max_abs_err {fwd_err} > {fwd_tol}")
+        _, ref = plain_fwd_bwd()
+        err = (grad.float() - ref.float()).abs().max().item()
+        tol = GRAD_RTOL[dname] * ref.float().abs().max().item()
+        if not math.isfinite(err) or err > tol:
+            fail(f"attention gradients through the kernel disagree with the "
+                 f"plain version's at B={B} N={N} h={h} d={d} {dtype}: "
+                 f"max_abs_err {err} > {tol}")
+        x32 = qkv.detach().float().requires_grad_()
+        _, ref32 = plain_fwd_bwd(x32, g.float())
+        err32 = (grad.float() - ref32).abs().max().item()
+        flops = 12.0 * B * h * N * N * d    # forward 4, its vjp 8
+        nbytes = 8.0 * B * N * h * d * qkv.element_size()
+        t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
+        row = dict(B=B, N=N, h=h, d=d, dtype=dname,
+                   fwd_max_abs_err=fwd_err, fwd_tol=fwd_tol,
+                   grad_max_abs_err=err, grad_tol=tol,
+                   grad_max_abs_err_vs_fp32=err32,
+                   fwd_bwd_ms=device_ms(kernel_fwd_bwd, reps=15, inner=5),
+                   plain_fwd_bwd_ms=device_ms(plain_fwd_bwd, reps=5, inner=2),
+                   sdpa_fwd_bwd_ms=device_ms(sdpa_fwd_bwd, reps=15, inner=5),
+                   fwd_bwd_bound_ms=max(t_ops, t_bytes) * 1e3,
+                   fwd_bwd_bound_by="operations" if t_ops >= t_bytes
+                   else "bytes")
+        print("  grad " + json.dumps(row), flush=True)
+        rows[B, N, h, d, dname] = row
+    return rows
+
+
+def phase_train(att, torch, np, smi):
+    """TRAIN_STEPS flagship-width bf16 steps; returns the phase's record."""
+    from hybrid_diffusion_tpu_torch.config import flagship_config
+    from hybrid_diffusion_tpu_torch.diffusion import linear_beta_schedule
+    from hybrid_diffusion_tpu_torch.profile_train import (
+        FINE_TUNE, synthetic_batches)
+    from hybrid_diffusion_tpu_torch.train.loop import (
+        create_train_state, init_params, make_dino)
+    from hybrid_diffusion_tpu_torch.train.step import (
+        make_train_step, middle_block)
+
+    cfg = flagship_config(**FINE_TUNE)
+    model = init_params(cfg, "cuda")
+    state = create_train_state(cfg, model, steps_per_epoch=100)
+    dino = make_dino(cfg, "cuda")
+    step = make_train_step(
+        linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T), cfg.loss_config,
+        dino_loss_fn=dino, use_conditioning=cfg.use_conditioning,
+        p_uncond=cfg.p_uncond, domain_routing=cfg.domain_routing)
+    gen = torch.Generator("cuda").manual_seed(cfg.seed)
+    # On the card before the timed loop, as profile_train stages them.
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in synthetic_batches(TRAIN_STEPS, cfg.batch_size,
+                                          cfg.img_size)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses, launches = [], [], 0
+    for i, batch in enumerate(batches):
+        blue = i % 2 == 0
+        closed = (1, 3) if blue else (0, 2)
+        middle = {n: p for n, p in state.params.items()
+                  if middle_block(n) is not None}
+        frozen = {n: (p.detach().clone(),
+                      {k: m.clone() for k, m in state.moments(n).items()})
+                  for n, p in middle.items() if middle_block(n) in closed}
+        opened = {n: p.detach().clone() for n, p in middle.items()
+                  if middle_block(n) not in closed}
+        att.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts = {k: n for k, n in att.launch_counts.items() if n}
+        if counts != {"attention_fwd": 4}:
+            fail(f"train step {i} launched the attention kernels {counts}, "
+                 f"expected the bf16 kernel 4 times and no other")
+        launches += counts["attention_fwd"]
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"train step {i} gave non-finite metrics {values}")
+        if values["underwater_gate"] != float(blue):
+            fail(f"train step {i}: underwater_gate {values['underwater_gate']}"
+                 f" on a {'blue' if blue else 'red'}-heavy batch")
+        for n, (p, moments) in frozen.items():
+            if not torch.equal(state.params[n], p) or not all(
+                    torch.equal(state.moments(n)[k], m)
+                    for k, m in moments.items()):
+                fail(f"train step {i} moved gated-off parameter {n} or its "
+                     f"AdamW moments")
+        moved = {middle_block(n) for n, p in opened.items()
+                 if not torch.equal(state.params[n], p)}
+        if moved != {0, 1, 2, 3} - set(closed):
+            fail(f"train step {i}: open middle blocks that moved {moved}, "
+                 f"expected {sorted({0, 1, 2, 3} - set(closed))}")
+        losses.append(values)
+        print(f"  step {i} ({'blue' if blue else 'red'}): "
+              f"{seconds[-1] * 1e3:.1f} ms " + json.dumps(values), flush=True)
+    import statistics
+
+    return dict(steps=len(batches), launches=launches,
+                median_step_ms=statistics.median(seconds[1:]) * 1e3,
+                step_ms=[x * 1e3 for x in seconds],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                losses=losses, card=smi)
+
+
+def phase_train_parity(torch, np):
+    """One fp32 step at 64², batch 2, from the npz, dropout 0, fixed t and
+    noise, on the card and on the CPU (and on the CPU from weights one ulp
+    away, for κ, and on the card with TF32 on, to read beside the bound);
+    returns the phase's record."""
+    from hybrid_diffusion_tpu_torch.config import flagship_config
+    from hybrid_diffusion_tpu_torch.diffusion import linear_beta_schedule
+    from hybrid_diffusion_tpu_torch.profile_train import synthetic_batches
+    from hybrid_diffusion_tpu_torch.train.loop import (
+        create_train_state, init_params, make_dino)
+    from hybrid_diffusion_tpu_torch.train.step import make_train_step
+
+    cfg = flagship_config(img_size=64, bf16=False, dropout=0.0,
+                          init_from_npz=str(FLAGSHIP_NPZ))
+    batch = synthetic_batches(1, batch=2, size=64, seed=3)[0]
+    rng = np.random.default_rng(4)
+    t = torch.from_numpy(rng.integers(0, cfg.T, (2,)))
+    noise = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(
+        np.float32))
+    results = {}
+    runs = (("cuda", False, False), ("cpu", False, False),
+            ("cpu", True, False), ("cuda", False, True))
+    for device, nudge, tf32 in runs:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        model = init_params(cfg, device)
+        if nudge:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(torch.from_numpy(1 + 2.0 ** -23 * rng.choice(
+                        [-1.0, 1.0], tuple(p.shape))).float())
+        state = create_train_state(cfg, model, steps_per_epoch=100)
+        step = make_train_step(
+            linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T),
+            cfg.loss_config, dino_loss_fn=make_dino(cfg, device))
+        state, metrics = step(state, batch, torch.Generator(device), t=t,
+                              noise=noise)
+        grads = torch.cat([p.grad.detach().flatten().cpu().double()
+                           for p in state.params.values()])
+        results[device, nudge, tf32] = (float(metrics["total"]), grads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = (results["cuda", False, False],
+                                            results["cpu", False, False])
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_rel = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    kappa = float((results["cpu", True, False][1] - g_cpu).norm()
+                  / g_cpu.norm())
+    loss_tf32, g_tf32 = results["cuda", False, True]
+    grad_bound = max(TRAIN_GRAD_FLOOR, 10 * kappa)
+    if not math.isfinite(loss_gpu) or loss_rel > TRAIN_LOSS_RTOL:
+        fail(f"card fp32 train step loss {loss_gpu} vs CPU {loss_cpu}: rel "
+             f"{loss_rel} > {TRAIN_LOSS_RTOL}")
+    if not math.isfinite(grad_rel) or grad_rel > grad_bound:
+        fail(f"card fp32 train step gradients differ from the CPU's by "
+             f"{grad_rel} of their norm > {grad_bound} (kappa {kappa})")
+    return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel=loss_rel,
+                grad_rel=grad_rel, kappa=kappa, grad_bound=grad_bound,
+                tf32_loss_rel=abs(loss_tf32 - loss_cpu) / abs(loss_cpu),
+                tf32_grad_rel=float((g_tf32 - g_cpu).norm() / g_cpu.norm()))
+
+
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
     return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
@@ -277,7 +533,9 @@ def main() -> None:
     # ---------------------------------------------------------------- kernel
     t0 = time.perf_counter()
     rows = phase_kernel(att, torch, device_ms, host_ms)
-    phase_done("kernel", t0, "all shapes within tolerance")
+    grad_rows = phase_grad(att, torch, device_ms)
+    phase_done("kernel", t0, "all shapes within tolerance, forward and "
+               "backward")
 
     # ---------------------------------------------------------------- serve
     t0 = time.perf_counter()
@@ -380,12 +638,38 @@ def main() -> None:
         detail.append(f"card {name} vs CPU fp32: max |diff| {max_diff:.3e}, "
                       f"PSNR {db:.2f} dB (limit {limit})")
     phase_done("path", t0, "64² batch 2 DPM++2M-5; " + "; ".join(detail))
+    del state
+
+    # ---------------------------------------------------------------- train
+    t0 = time.perf_counter()
+    train = phase_train(att, torch, np, smi)
+    phase_done("train", t0, (
+        f"{train['steps']} flagship steps (256², batch 16, bf16, "
+        f"default loss with DINO): median step {train['median_step_ms']:.1f} "
+        f"ms after the first, peak memory {train['peak_gib']:.2f} GiB, "
+        f"attention launches {train['launches']} (4 per step) | {smi}"))
+
+    # ---------------------------------------------------------------- tparity
+    t0 = time.perf_counter()
+    tp = phase_train_parity(torch, np)
+    phase_done("tparity", t0, (
+        f"fp32 64² batch 2 step, card vs CPU: loss rel {tp['loss_rel']:.3e} "
+        f"(limit {TRAIN_LOSS_RTOL}), gradients rel {tp['grad_rel']:.3e} "
+        f"(limit {tp['grad_bound']:.3e}, κ {tp['kappa']:.3e}); with TF32 "
+        f"on: loss rel {tp['tf32_loss_rel']:.3e}, gradients rel "
+        f"{tp['tf32_grad_rel']:.3e}"))
 
     # Each kernel at the shape the serve phase gave it, with its launches
     # there: bf16 in the bf16 calls, fp32 in the full-precision request.
+    # The bf16 kernel also carries its launches in the train phase and its
+    # forward + backward at the train shape; the fp32 one, at the tparity
+    # phase's shape.
     kernels = []
+    grad_of = {"attention_fwd": grad_rows[TRAIN_GRAD_CASES[0]],
+               "attention_fwd_fp32": grad_rows[TRAIN_GRAD_CASES[1]]}
     for row, n in ((rows[SERVE_CASE], launches),
                    (rows[FP32_SERVE_CASE], fp32_serve_launches)):
+        g = grad_of[row["kernel"]]
         kernels.append({
             "name": row["kernel"],
             "route": "cuda",
@@ -398,6 +682,13 @@ def main() -> None:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "train_launches": (train["launches"]
+                               if row["kernel"] == "attention_fwd" else 0),
+            "fwd_bwd_shape": [g["B"], g["N"], g["h"], g["d"]],
+            "fwd_bwd_ms": g["fwd_bwd_ms"],
+            "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],
+            "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"],
+            "grad_max_abs_err": g["grad_max_abs_err"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

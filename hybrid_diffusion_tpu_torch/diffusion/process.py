@@ -1,16 +1,40 @@
-"""DDIM time grid and per-step coefficients.
+"""Forward diffusion, x₀ reconstruction, DDIM time grid and coefficients.
 
-Counterpart of `hybrid_diffusion_tpu/diffusion/process.py::ddim_time_grid`
-and `ddim_coefficients`. (q-sampling and the DDPM posterior come with the
-training slice.) The coefficients are float32 numpy arrays, one entry per
-step in sampling order.
+Counterpart of `hybrid_diffusion_tpu/diffusion/process.py`: `q_sample`,
+`predict_x0_from_eps` (the training step's), `ddim_time_grid` and
+`ddim_coefficients`. (The DDPM posterior comes with `ddpm_sample`.) The
+DDIM coefficients are float32 numpy arrays, one entry per step in sampling
+order.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .schedule import DiffusionSchedule
+
+
+def _gather(table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-timestep coefficients of `table` at t, shaped (B, 1, ..., 1)."""
+    out = torch.as_tensor(table, device=t.device)[t.long()]
+    return out.reshape(t.shape[0], *([1] * (ndim - 1)))
+
+
+def q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion: x_t = sqrt(ᾱ_t)·x₀ + sqrt(1−ᾱ_t)·ε."""
+    a = _gather(schedule.sqrt_alphas_bar, t, x0.ndim)
+    b = _gather(schedule.sqrt_one_minus_alphas_bar, t, x0.ndim)
+    return a * x0 + b * noise
+
+
+def predict_x0_from_eps(schedule: DiffusionSchedule, x_t: torch.Tensor,
+                        t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """x₀ = (x_t − sqrt(1−ᾱ_t)·ε) / sqrt(ᾱ_t)."""
+    a = _gather(schedule.sqrt_alphas_bar, t, x_t.ndim)
+    b = _gather(schedule.sqrt_one_minus_alphas_bar, t, x_t.ndim)
+    return (x_t - b * eps) / a
 
 
 def ddim_time_grid(T: int, ddim_steps: int) -> tuple[np.ndarray, np.ndarray]:

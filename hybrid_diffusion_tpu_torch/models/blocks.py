@@ -8,9 +8,12 @@ boundary). Module and parameter names follow the flax ones, so that
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_spatial_attention
 from ..ops.fast_conv import conv_transpose_5x5_s2, fused_dual_downsample
@@ -20,7 +23,8 @@ from .layers import Conv, Dense, GroupNorm32
 class SpatialSelfAttention(nn.Module):
     """Multi-head self-attention over the H·W tokens: a packed q|k|v
     projection, scaled dot-product attention per head, an output
-    projection."""
+    projection. Init as the JAX block's (torch.nn.MultiheadAttention's):
+    in_proj xavier-uniform, out_proj torch's default kernel, zero biases."""
 
     def __init__(self, channels: int, num_heads: int = 8,
                  dtype: torch.dtype = torch.float32):
@@ -31,6 +35,9 @@ class SpatialSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj = Dense(channels, 3 * channels, dtype)
         self.out_proj = Dense(channels, channels, dtype)
+        nn.init.xavier_uniform_(self.in_proj.weight)
+        nn.init.zeros_(self.in_proj.bias)
+        nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
@@ -45,15 +52,27 @@ class SpatialSelfAttention(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """GN → SiLU → Conv3 | + temb | + cemb | GN → SiLU → Conv3 | + shortcut,
-    then, with `attn`, spatial attention that REPLACES h (no residual, as in
-    the reference). GroupNorm runs in fp32 and its SiLU output is cast to
-    the compute dtype. Inference only: dropout is the identity."""
+    """GN → SiLU → Conv3 | + temb | + cemb | GN → SiLU → Dropout → Conv3 |
+    + shortcut, then, with `attn`, spatial attention that REPLACES h (no
+    residual, as in the reference). GroupNorm runs in fp32 and its SiLU
+    output is cast to the compute dtype.
+
+    Dropout runs only when the caller passes a generator (the model does in
+    train mode): where(mask, h/keep, 0), the mask drawn from that generator.
+    With `remat` the block's activations are recomputed in the backward
+    (torch.utils.checkpoint, the JAX model's nn.remat). The mask is drawn
+    before the recomputed region and handed to it, because checkpoint
+    replays only the global RNG's state, not an explicit generator's.
+    """
 
     def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool = False,
-                 num_heads: int = 8, dtype: torch.dtype = torch.float32):
+                 num_heads: int = 8, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.out_ch = out_ch
+        self.dropout = dropout
+        self.remat = remat
         self.norm1 = GroupNorm32(in_ch)
         self.conv1 = Conv(in_ch, out_ch, 3, dtype)
         self.temb_proj = Dense(tdim, out_ch, dtype)
@@ -65,12 +84,30 @@ class ResBlock(nn.Module):
                      if attn else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                cemb: torch.Tensor) -> torch.Tensor:
+                cemb: torch.Tensor,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        keep_mask = None
+        if dropout_generator is not None and self.dropout > 0:
+            B, _, H, W = x.shape
+            keep_mask = torch.rand((B, self.out_ch, H, W), device=x.device,
+                                   generator=dropout_generator) >= self.dropout
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, temb, cemb, keep_mask,
+                              use_reentrant=False)
+        return self._forward(x, temb, cemb, keep_mask)
+
+    def _forward(self, x: torch.Tensor, temb: torch.Tensor,
+                 cemb: torch.Tensor,
+                 keep_mask: Optional[torch.Tensor]) -> torch.Tensor:
         dt = self.dtype
         h = self.conv1(F.silu(self.norm1(x)).to(dt))
         h = h + self.temb_proj(F.silu(temb.to(dt)))[:, :, None, None]
         h = h + self.cemb_proj(F.silu(cemb.to(dt)))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)).to(dt))
+        h = F.silu(self.norm2(h)).to(dt)
+        if keep_mask is not None:
+            h = torch.where(keep_mask, h / (1.0 - self.dropout), 0.0)
+        h = self.conv2(h)
         if self.shortcut is not None:
             x = self.shortcut(x)
         h = h + x

@@ -13,6 +13,11 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     (each product as three TF32 products, fp32-accurate). There is no
     fallback from the card to the plain version or from one kernel to the
     other.
+  - `RecomputedBackwardAttention`: reverse mode, as the JAX package's
+    `_pallas_attention_diff`: the forward is the kernel, the backward
+    differentiates `attention_reference` at the saved q, k, v (there is no
+    backward kernel; the JAX package has none either). CUDA tensors that
+    require grad go through it.
 
 Tensors are (B, N, heads, head_dim), as in the JAX package.
 """
@@ -134,10 +139,6 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
                 f"attention kernel ({q.dtype}) needs {name} 16-byte aligned "
                 f"with strides in multiples of {per_chunk} elements, got "
                 f"address {t.data_ptr():#x} and strides {t.stride()}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "the CUDA attention kernel is forward only; its backward comes "
-            "with the training slice (ROADMAP.md, queue 2, kernel 1)")
 
 
 def call_library(fn, q: torch.Tensor, k: torch.Tensor,
@@ -173,14 +174,41 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class RecomputedBackwardAttention(torch.autograd.Function):
+    """`forward_fn(q, k, v)` forward; the backward recomputes through
+    `attention_reference` at the saved inputs and returns its grads (the
+    design of the JAX package's `_pallas_attention_bwd`).
+
+    The grads are contiguous (B, N, h, d) tensors: autograd carries them back
+    through the strided views of the packed projection they came from.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward_fn):
+        ctx.save_for_backward(q, k, v)
+        return forward_fn(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = attention_reference(q, k, v)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None
+
+
 def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """Scaled-dot-product attention over (B, N, heads, head_dim) tensors.
 
-    CPU tensors take the plain version; CUDA tensors take a CUDA kernel.
+    CPU tensors take the plain version; CUDA tensors take a CUDA kernel,
+    inside `RecomputedBackwardAttention` when an input requires grad.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
-    if q.device.type == "cuda":
-        return _launch(q, k, v)
-    raise ValueError(f"attention: unsupported device {q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return RecomputedBackwardAttention.apply(q, k, v, _launch)
+    return _launch(q, k, v)

@@ -1,7 +1,9 @@
-"""Model construction and the sampler of the enhancement path.
+"""Model construction, the training step's set-up, and the sampler.
 
-Counterpart of `hybrid_diffusion_tpu/train/loop.py::build_model` (:67-77) and
-`make_sampler` (:723-778). (Training, evaluation and checkpoints come with
+Counterpart of `hybrid_diffusion_tpu/train/loop.py::build_model` (:67-77),
+`init_params` (:80-91), `_make_dino` (:124-132), the train state of
+`train` (:498-507) and `make_sampler` (:723-778). (The `train()` loop with
+its loaders, checkpoints and SIGTERM handling, and evaluation, come with
 later slices.)
 """
 
@@ -13,8 +15,11 @@ import torch
 
 from ..config import Config
 from ..diffusion import ddim_sample, dpm_solver_pp_2m_sample, linear_beta_schedule
+from ..losses import DinoPerceptualLoss
 from ..models import DynamicUNet
+from ..weights import load_npz_state_dict
 from .step import normalize_uint8
+from .train_state import TrainState
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -34,7 +39,48 @@ def build_model(config: Config) -> DynamicUNet:
         ch_mult=tuple(config.channel_mult),
         num_res_blocks=config.num_res_blocks,
         dtype=torch.bfloat16 if config.bf16 else torch.float32,
+        dropout=config.dropout,
+        remat=config.remat,
     )
+
+
+def init_params(config: Config, device="cuda") -> DynamicUNet:
+    """The model of `config` on `device`, its parameters initialized: from
+    `config.init_from_npz` when set (a warm start), else with the JAX
+    model's init drawn from `config.seed` (the global generator's state is
+    left as it was)."""
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(config.seed)
+        model = build_model(config)
+    if config.init_from_npz:
+        model.load_state_dict(load_npz_state_dict(config.init_from_npz),
+                              strict=True)
+    return model.to(device)
+
+
+def create_train_state(config: Config, model: DynamicUNet,
+                       steps_per_epoch: int,
+                       total_epochs: Optional[int] = None) -> TrainState:
+    """A fresh optimizer over `model` with the configuration's lr, decay,
+    clip, warmup-cosine over `total_epochs` (default epochs_stage_1) and
+    EMA, as the JAX `train` makes one per stage."""
+    return TrainState(
+        model, lr=config.lr, weight_decay=config.weight_decay,
+        grad_clip=config.grad_clip,
+        total_epochs=total_epochs or config.epochs_stage_1,
+        steps_per_epoch=steps_per_epoch, multiplier=config.multiplier,
+        ema_decay=config.ema_decay, grad_accum=config.grad_accum)
+
+
+def make_dino(config: Config, device="cuda") -> Optional[DinoPerceptualLoss]:
+    """The DINO extractor when the loss uses it (random init from seed 1,
+    or HDT_DINO_WEIGHTS), computing in bf16 when `config.bf16`."""
+    if not config.dino_weight:
+        return None
+    return DinoPerceptualLoss(
+        seed=1, dtype=torch.bfloat16 if config.bf16 else torch.float32,
+        device=resolve_device(device))
 
 
 def make_sampler(config: Config, model: DynamicUNet,

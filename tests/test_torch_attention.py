@@ -75,7 +75,10 @@ def _bad_inputs():
     yield "last-axis stride", (q.transpose(2, 3), k.transpose(2, 3),
                                v.transpose(2, 3)), ValueError
     yield "rank", (q[0], k[0], v[0]), ValueError
-    yield "grad", (q.clone().requires_grad_(), k, v), NotImplementedError
+    # Inputs that require grad are taken (the backward recomputes through
+    # the plain version) and checked like any other.
+    yield "grad", (q.double().requires_grad_(), k.double(), v.double()), \
+        TypeError
     # The bf16/fp16 (tensor-core) kernel copies 16-byte chunks: it refuses a
     # misaligned pointer or a stride that is not a multiple of 8 elements.
     for dtype in (torch.bfloat16, torch.float16):
