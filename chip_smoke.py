@@ -16,7 +16,8 @@ From a clean checkout, with no arguments, it:
             (tensor-core) instructions (cuobjdump -sass), and fails if one
             has none or spills;
   3. kernel holds the kernels against their plain PyTorch version on the
-            card at the shapes the serve and path phases give them, at
+            card at the shapes the serve, path, train, loop and eval phases
+            give them (the loop's probe at its own batch, 9), at
             bf16 / fp16 / fp32, d = 16 / 64, a ragged N and inputs that
             catch a missing mask, and times kernel, plain version and
             scaled_dot_product_attention (CUDA events, median of 25, with
@@ -27,12 +28,17 @@ From a clean checkout, with no arguments, it:
             and 3 images, checking outputs and that the bf16 kernel ran 20
             times per device call; then answers one request of 8 from an
             fp32 Enhancer (bf16=False), which must launch the fp32 kernel
-            20 times;
+            20 times, twice: with the caller's TF32 flags at PyTorch's
+            defaults and with them off; the two must give the same bytes
+            and leave the caller's flags as they were (the fp32 mode sets
+            its own precision);
   5. path   runs the same weights at 64², batch 2, on one numpy initial
             noise through DPM++2M-5 on the card in fp32 (the fp32 kernel)
             and in bf16 (the bf16 kernel), 20 launches each, and on the CPU
             in fp32 (plain version), and requires PSNR ≥ 40 dB (fp32) and
-            ≥ 38 dB (bf16) against the CPU;
+            ≥ 38 dB (bf16) against the CPU; prints beside them the fp32
+            sampler with cuDNN's TF32 on (what the fp32 mode gave before it
+            set its own precision);
   6. train  takes TRAIN_STEPS training steps at the flagship width (256²,
             batch 16, bf16, the default composite loss with the DINO term
             on a random-init ViT-S at 252², dropout 0.15, domain routing,
@@ -48,7 +54,26 @@ From a clean checkout, with no arguments, it:
             within TRAIN_LOSS_RTOL and the gradients' difference within
             max(TRAIN_GRAD_FLOOR, 10 κ) of their norm, κ being the CPU
             step's own change when every weight moves by one ulp; prints
-            the same step on the card with TF32 on beside that bound.
+            the same step on the card with the caller's TF32 on beside that
+            bound (the step turns it off, so it reads as the fp32 one);
+  8. loop   cli.main(--state train) at the flagship width on the synthetic
+            corpus at 256² (64 train, 9 val, 18 test pairs a domain; batch
+            16, bf16, the default loss with DINO, EMA 0.99875, lr 1e-5, the
+            r5 warm start, one epoch a stage, the probe and a save every
+            epoch, checkpoints and the export in a temporary directory it
+            removes): every step 4 bf16 launches and finite losses, its
+            batch and every parameter on the card, every probe call (DPM++2M-
+            15) 60 launches, eval_curve.jsonl rows for both domains and
+            stages, the stage-final checkpoints and the export's sidecar;
+            then train(--resume_from auto) with a budget 2 steps past the
+            saved step must continue from it; prints the step time inside
+            train() (synchronized after each step), the gap between steps,
+            the probe calls', saves' and exports' times;
+  9. eval   cli.main(--state test) on that export with FID on (He-rescaled
+            random Inception at 256²): finite metrics and FID for both
+            domains, n_images the test split's, 20 launches a sampled
+            batch; prints sample_wall_s, images/s, fetch_block_s and
+            fid_block_s (the host's waits on the card).
 
 The kernel phase also holds the attention's forward and gradients (the
 kernel's forward inside the autograd Function, the backward recomputed
@@ -115,6 +140,10 @@ SERVE_CASE = (8, 1024, 8, 32, "bfloat16", "randn")
 FP32_SERVE_CASE = (8, 1024, 8, 32, "float32", "randn")
 PATH_CASE = (2, 64, 8, 32, "float32", "randn")
 TRAIN_CASE = (16, 1024, 8, 32, "bfloat16", "randn")
+# The loop phase's probe (probe_case) gives the bf16 kernel its most
+# frequent shape there: the first val batch of the synthetic corpus, fewer
+# images than a train batch. phase_kernel holds it against the plain version
+# beside KERNEL_CASES.
 # (B, N, h, d, dtype, inputs) of the kernel phase. The ragged N = 1000 leaves
 # 24 padded keys in the last tile: unmasked, they would dilute the softmax
 # by ~1.5% (errors ~4e-3), far past the fp32 tolerance; the mask-trap inputs
@@ -165,6 +194,9 @@ TRAIN_GRAD_FLOOR = 1e-4
 # (cuDNN's bf16 convolutions, the tensor-core attention).
 PATH_PSNR_FP32_DB = 40.0
 PATH_PSNR_BF16_DB = 38.0
+# The loop and eval phases' synthetic corpus: 64 train, 9 val and 18 test
+# pairs a domain (data/datasets.py::make_dataset).
+LOOP_SYNTHETIC_LENGTH = 64
 
 
 def mask_trap_qkv(rng, B: int, N: int, h: int, d: int):
@@ -177,6 +209,20 @@ def mask_trap_qkv(rng, B: int, N: int, h: int, d: int):
     noise = 0.1 * rng.standard_normal((B, N, 3, h, d))
     centre = np.array([1.0, -30.0 / math.sqrt(d), 1.0])[:, None, None]
     return (centre + noise).astype(np.float32)
+
+
+# PyTorch's defaults: (matmul, cuDNN) TF32 flags.
+TF32_DEFAULTS = (False, True)
+
+
+def tf32_flags(torch) -> tuple:
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def set_tf32(torch, flags: tuple) -> None:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        flags
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -226,15 +272,32 @@ def phase_build(att, cuda_build):
     return built
 
 
+def probe_case() -> tuple:
+    """The attention shape of the loop phase's probe calls: its first
+    eval_probe_batches val batches of the synthetic corpus at 256², each
+    min(val pairs, batch) images (9 of 16 at LOOP_SYNTHETIC_LENGTH 64)."""
+    from hybrid_diffusion_tpu_torch.config import parse_config
+    from hybrid_diffusion_tpu_torch.data.datasets import make_dataset
+
+    config = parse_config(loop_argv(Path("unused")))
+    if config.eval_probe_batches != 1:
+        fail(f"probe_case assumes one probe batch, the loop phase takes "
+             f"{config.eval_probe_batches}")
+    n_val = len(make_dataset("synthetic-underwater", "val",
+                             synthetic_length=LOOP_SYNTHETIC_LENGTH))
+    return (min(n_val, config.batch_size),) + TRAIN_CASE[1:]
+
+
 def phase_kernel(att, torch, device_ms, host_ms):
-    """Kernels vs their plain version on the card; returns the rows."""
+    """Kernels vs their plain version on the card, at KERNEL_CASES and the
+    probe's shape; returns the rows."""
     import numpy as np
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(0)
     rng = np.random.default_rng(0)
     rows = {}
-    for case in KERNEL_CASES:
+    for case in KERNEL_CASES + [probe_case()]:
         B, N, h, d, dname, inputs = case
         dtype = getattr(torch, dname)
         atol = ATOL[dname, inputs]
@@ -492,6 +555,252 @@ def phase_train_parity(torch, np):
                 tf32_grad_rel=float((g_tf32 - g_cpu).norm() / g_cpu.norm()))
 
 
+class LoopRecorder:
+    """Wraps the loop's step, sampler and checkpoint save to record, per
+    call, the kernels' launches, its host time (ending in a synchronize),
+    the devices of the batch and the model, and the step's metrics."""
+
+    def __init__(self, att, torch, loop, sync_samples: bool = True):
+        self.att, self.torch, self.loop = att, torch, loop
+        self.sync_samples = sync_samples
+        self.steps, self.samples, self.saves = [], [], []
+        self.real = {name: getattr(loop, name) for name in
+                     ("make_train_step", "make_sampler", "save_checkpoint")}
+        loop.make_train_step = self._make_train_step
+        loop.make_sampler = self._make_sampler
+        loop.save_checkpoint = self._save_checkpoint
+
+    def restore(self) -> None:
+        for name, fn in self.real.items():
+            setattr(self.loop, name, fn)
+
+    def _timed(self, fn, *args, sync: bool = True, **kwargs):
+        torch, att = self.torch, self.att
+        if sync:
+            torch.cuda.synchronize()
+        before = dict(att.launch_counts)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = {k: n - before[k] for k, n in att.launch_counts.items()
+                    if n != before[k]}
+        return out, launches, t0, t1
+
+    def _make_train_step(self, *args, **kwargs):
+        step = self.real["make_train_step"](*args, **kwargs)
+
+        def recorded(state, batch, generator):
+            (state, metrics), launches, t0, t1 = self._timed(
+                step, state, batch, generator)
+            self.steps.append(dict(
+                launches=launches, t0=t0, t1=t1,
+                metrics={k: float(v) for k, v in metrics.items()},
+                batch_on_cuda=all(v.is_cuda for v in batch.values()),
+                params_on_cuda=all(p.is_cuda for p in state.params.values())))
+            return state, metrics
+
+        return recorded
+
+    def _make_sampler(self, *args, **kwargs):
+        sample = self.real["make_sampler"](*args, **kwargs)
+
+        def recorded(cond_u8, generator=None, init_noise=None):
+            out, launches, t0, t1 = self._timed(sample, cond_u8, generator,
+                                                init_noise,
+                                                sync=self.sync_samples)
+            self.samples.append(dict(launches=launches, ms=(t1 - t0) * 1e3,
+                                     batch=cond_u8.shape[0]))
+            return out
+
+        return recorded
+
+    def _save_checkpoint(self, *args, **kwargs):
+        import os
+
+        path, _, t0, t1 = self._timed(self.real["save_checkpoint"], *args,
+                                      **kwargs)
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        self.saves.append(dict(path=path, ms=(t1 - t0) * 1e3,
+                               gib=size / 2**30))
+        return path
+
+
+def loop_argv(tmp: Path) -> list:
+    """The loop phase's command line: the flagship width, the synthetic
+    corpus at 256², batch 16, bf16, the default loss with DINO, EMA
+    0.99875, lr 1e-5, warm-started from the r5 npz, one epoch a stage,
+    the probe and a save every epoch, the export and checkpoints in tmp."""
+    return ["--state", "train", "--device", "cuda", "--synthetic_data",
+            "--synthetic_length", str(LOOP_SYNTHETIC_LENGTH),
+            "--img_size", "256", "--batch_size", "16", "--bf16",
+            "--ema_decay", "0.99875", "--lr", "1e-5",
+            "--init_from_npz", str(FLAGSHIP_NPZ),
+            "--epochs_stage_1", "1", "--epochs_stage_2", "1",
+            "--eval_every", "1", "--save_checkpoint", "1",
+            "--sampler", "dpm++2m", "--ddim_step", "5",
+            "--export_npz", str(tmp / "export.npz"),
+            "--checkpoint_dir", str(tmp / "ck"),
+            "--output_path", str(tmp / "out")]
+
+
+def phase_loop(att, torch, np, tmp: Path) -> dict:
+    """`cli.main` trains both stages at the flagship width, then a second
+    run resumes with --resume_from auto and a larger budget; returns the
+    phase's record."""
+    import statistics
+
+    from hybrid_diffusion_tpu_torch import cli
+    from hybrid_diffusion_tpu_torch.config import parse_config
+    from hybrid_diffusion_tpu_torch.data.datasets import make_dataset
+    from hybrid_diffusion_tpu_torch.train import checkpoint, loop
+
+    argv = loop_argv(tmp)
+    batch = parse_config(argv).batch_size
+    train_len = len(make_dataset("synthetic-underwater", "train",
+                                 synthetic_length=LOOP_SYNTHETIC_LENGTH))
+    steps_per_stage = -(-train_len // batch)
+    rec = LoopRecorder(att, torch, loop)
+    att.reset_launch_count()
+    try:
+        if cli.main(argv) != 0:
+            fail("cli.main(--state train) returned non-zero")
+        first = dict(steps=list(rec.steps), samples=list(rec.samples),
+                     saves=list(rec.saves))
+        rows = [json.loads(line) for line in
+                open(tmp / "out" / "eval_curve.jsonl")]
+        rec.steps.clear(), rec.samples.clear(), rec.saves.clear()
+        resume = parse_config(argv + ["--resume_from", "auto"])
+        summary = loop.train(resume, max_steps=steps_per_stage + 2)
+    finally:
+        rec.restore()
+    loop_launches = att.launch_counts["attention_fwd"]
+    if att.launch_count != loop_launches:
+        fail(f"the loop launched {att.launch_counts}, expected only the bf16 "
+             f"kernel")
+    steps = first["steps"]
+    if len(steps) != 2 * steps_per_stage:
+        fail(f"the first run took {len(steps)} steps, expected "
+             f"{steps_per_stage} in each of two stages")
+    for i, st in enumerate(steps + rec.steps):
+        if st["launches"] != {"attention_fwd": 4}:
+            fail(f"loop step {i} launched {st['launches']}, expected the bf16 "
+                 f"kernel 4 times")
+        if not all(math.isfinite(v) for v in st["metrics"].values()):
+            fail(f"loop step {i} gave non-finite metrics {st['metrics']}")
+        if not (st["batch_on_cuda"] and st["params_on_cuda"]):
+            fail(f"loop step {i}: a batch or a parameter is not on the card")
+    probe_steps = 15
+    probes = first["samples"]
+    if len(probes) != 8 or any(p["launches"] != {"attention_fwd": 4 * probe_steps}
+                               for p in probes):
+        fail(f"the probes made {len(probes)} sampler calls with launches "
+             f"{[p['launches'] for p in probes]}, expected 8 (2 stages × 2 "
+             f"domains × raw and EMA) of {4 * probe_steps}")
+    probe_b = probe_case()[0]
+    if any(p["batch"] != probe_b for p in probes):
+        fail(f"probe batches {[p['batch'] for p in probes]}, the kernel phase "
+             f"checked the probe's shape at batch {probe_b}")
+    if sorted((r["stage"], r["domain"]) for r in rows) != sorted(
+            (s, d) for s in ("Atmospheric", "Underwater")
+            for d in ("atmospheric", "underwater")):
+        fail(f"eval_curve.jsonl rows {[(r['stage'], r['domain']) for r in rows]}")
+    if not all(math.isfinite(r["psnr"]) and math.isfinite(r["psnr_ema"])
+               for r in rows):
+        fail(f"the probe gave non-finite PSNRs {rows}")
+    names = sorted(p.name for p in (tmp / "ck").iterdir())
+    for stage in ("Atmospheric", "Underwater"):
+        want = f"ckpt_1_{stage}_final_"
+        if not any(n.startswith(want) and n.endswith("_HICRDLoLI")
+                   for n in names):
+            fail(f"no stage-final checkpoint {want}<run id>_HICRDLoLI in "
+                 f"{names}")
+    side = json.loads((tmp / "export.npz.json").read_text())
+    if side.get("subtree") not in ("params", "ema_params") \
+            or not (tmp / "export.npz").is_file():
+        fail(f"the exported npz's sidecar names no subtree: {side}")
+    state = summary["state"]
+    final = checkpoint.load_metadata(summary["stages"][-1]["checkpoint"])
+    if (summary["steps"] != steps_per_stage + 2 or len(rec.steps) != 2
+            or state.step != steps_per_stage + 2 or final["step"] != state.step
+            or [s["stage"] for s in summary["stages"]] != ["Underwater"]):
+        fail(f"the resumed run did not continue from step {steps_per_stage}: "
+             f"{len(rec.steps)} steps, summary {summary['steps']}, state "
+             f"step {state.step}, checkpoint step {final['step']}")
+    ms = [(st["t1"] - st["t0"]) * 1e3 for st in steps]
+    gaps = [(b["t0"] - a["t1"]) * 1e3 for a, b in zip(steps, steps[1:])
+            if a is not steps[steps_per_stage - 1]]
+    periodic = [s for s in first["saves"] if "_final_" not in s["path"]]
+    return dict(steps=len(steps), resumed_steps=len(rec.steps),
+                launches=loop_launches,
+                median_step_ms=statistics.median(ms[1:]),
+                step_ms=ms, median_gap_ms=statistics.median(gaps),
+                gap_ms=gaps,
+                probe_call_ms=[p["ms"] for p in probes],
+                probe_batch=probes[0]["batch"],
+                save_ms=[s["ms"] for s in first["saves"]],
+                save_gib=periodic[0]["gib"],
+                probe_rows=rows, export=side["subtree"],
+                resumed_from=steps_per_stage)
+
+
+def phase_eval(att, torch, np, tmp: Path) -> dict:
+    """`cli.main(--state test)` on the loop's export with the He-rescaled
+    random Inception FID at 256²; returns evaluate()'s results and the
+    sampler's launches."""
+    from hybrid_diffusion_tpu_torch import cli
+    from hybrid_diffusion_tpu_torch.config import parse_config
+    from hybrid_diffusion_tpu_torch.data.datasets import make_dataset
+    from hybrid_diffusion_tpu_torch.train import loop
+
+    argv = [a if a != "train" else "test" for a in loop_argv(tmp)]
+    argv += ["--pretrained_path", str(tmp / "export.npz")]
+    batch = parse_config(argv).batch_size
+    n_test = len(make_dataset("synthetic-underwater", "test",
+                              synthetic_length=LOOP_SYNTHETIC_LENGTH))
+    # No synchronize around the sampler: evaluate() keeps two batches in
+    # flight, and its own clocks (sample_wall_s, fetch_block_s) are read.
+    rec = LoopRecorder(att, torch, loop, sync_samples=False)
+    real_evaluate = loop.evaluate
+    results = {}
+
+    def captured(*args, **kwargs):
+        results.update(real_evaluate(*args, **kwargs))
+        return results
+
+    loop.evaluate = captured
+    att.reset_launch_count()
+    try:
+        if cli.main(argv) != 0:
+            fail("cli.main(--state test) returned non-zero")
+    finally:
+        loop.evaluate = real_evaluate
+        rec.restore()
+    batches = 2 * -(-n_test // batch)
+    if len(rec.samples) != batches or any(
+            s["launches"] != {"attention_fwd": 20} for s in rec.samples):
+        fail(f"evaluate made {len(rec.samples)} sampler calls with launches "
+             f"{[s['launches'] for s in rec.samples]}, expected {batches} of "
+             f"20 (DPM++2M-5)")
+    for domain in ("underwater", "atmospheric"):
+        res = results.get(domain, {})
+        if res.get("n_images") != n_test:
+            fail(f"{domain}: n_images {res.get('n_images')}, the test split "
+                 f"has {n_test}")
+        for k in ("psnr", "ssim", "uiqm", "uciqe", "uism", "uicm", "uiconm",
+                  "uiqm_nd", "fid"):
+            if not math.isfinite(res.get(k, float("nan"))):
+                fail(f"{domain}: {k} = {res.get(k)} is not finite")
+        if res.get("fid_pretrained") != 0.0:
+            fail(f"{domain}: expected the He-rescaled random FID")
+        if not res.get("fid_block_s", -1.0) >= 0.0:
+            fail(f"{domain}: fid_block_s {res.get('fid_block_s')}")
+    return dict(results=results, launches=att.launch_counts["attention_fwd"],
+                sampler_calls=len(rec.samples))
+
+
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
     return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
@@ -511,13 +820,15 @@ def main() -> None:
     from hybrid_diffusion_tpu_torch.config import flagship_config
     from hybrid_diffusion_tpu_torch.ops import attention as att
     from hybrid_diffusion_tpu_torch.serve import Enhancer
+    from hybrid_diffusion_tpu_torch.diffusion import (
+        dpm_solver_pp_2m_sample, linear_beta_schedule)
     from hybrid_diffusion_tpu_torch.train.loop import build_model, make_sampler
+    from hybrid_diffusion_tpu_torch.train.step import normalize_uint8
     from hybrid_diffusion_tpu_torch.utils import cuda_build
     from hybrid_diffusion_tpu_torch.utils.timing import device_ms, host_ms
     from hybrid_diffusion_tpu_torch.weights import load_npz_state_dict
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_tf32(torch, (False, False))
     smi = cuda_build.nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     phase_done("env", t0, f"python {sys.version.split()[0]} torch "
@@ -575,27 +886,48 @@ def main() -> None:
     del enh
 
     # The full-precision serving mode (bf16=False) at full width: one
-    # request of 8 through the fp32 kernel.
+    # request of 8 through the fp32 kernel, with the caller's TF32 flags at
+    # PyTorch's defaults (cuDNN's on), then the same request with them off.
+    # The Enhancer sets its own precision, so both give the same bytes, and
+    # the caller's flags are as they were after each call.
     enh32 = Enhancer(flagship_config(bf16=False), FLAGSHIP_NPZ, max_batch=8,
                      device="cuda")
-    att.reset_launch_count()
-    t_req = time.perf_counter()
-    outs = enh32.enhance(list(requests[0]))
-    fp32_ms = (time.perf_counter() - t_req) * 1e3
-    fp32_serve_launches = att.launch_counts["attention_fwd_fp32"]
-    if fp32_serve_launches != 20 or att.launch_count != 20:
-        fail(f"the fp32 request launched the kernels {att.launch_counts} "
-             f"times, expected the fp32 kernel 20 times and no other")
-    if len(outs) != 8 or int(np.ptp(np.stack(outs))) == 0:
-        fail("the fp32 request gave no or constant outputs")
+    fp32_outs = {}
+    for flags in (TF32_DEFAULTS, (False, False)):
+        set_tf32(torch, flags)
+        enh32._generator.manual_seed(enh32.config.seed)
+        att.reset_launch_count()
+        t_req = time.perf_counter()
+        outs = enh32.enhance(list(requests[0]))
+        if flags == TF32_DEFAULTS:
+            fp32_ms = (time.perf_counter() - t_req) * 1e3
+            fp32_serve_launches = att.launch_counts["attention_fwd_fp32"]
+        if tf32_flags(torch) != flags:
+            fail(f"the fp32 request left the caller's TF32 flags at "
+                 f"{tf32_flags(torch)}, they were {flags}")
+        if att.launch_counts["attention_fwd_fp32"] != 20 \
+                or att.launch_count != 20:
+            fail(f"the fp32 request launched the kernels {att.launch_counts} "
+                 f"times, expected the fp32 kernel 20 times and no other")
+        if len(outs) != 8 or int(np.ptp(np.stack(outs))) == 0:
+            fail("the fp32 request gave no or constant outputs")
+        fp32_outs[flags] = np.stack(outs)
+    set_tf32(torch, (False, False))
+    if not np.array_equal(*fp32_outs.values()):
+        diff = np.abs(np.subtract(*[o.astype(int) for o in
+                                    fp32_outs.values()])).max()
+        fail(f"the fp32 request under PyTorch's TF32 defaults differs from "
+             f"the one with TF32 off (max |diff| {diff})")
     del enh32
     phase_done("serve", t0, (
         f"bf16: {n_img} images in {calls} calls, {serve_s:.3f}s, "
         f"{n_img / serve_s:.2f} img/s, call latencies "
         f"{[round(x * 1e3, 1) for x in latencies]} ms, attention launches "
         f"{launches} ({launches // calls} per call), peak memory "
-        f"{peak_gib:.2f} GiB; fp32: one call of 8 {fp32_ms:.1f} ms, "
-        f"{fp32_serve_launches} fp32 attention launches | {smi}"))
+        f"{peak_gib:.2f} GiB; fp32: one call of 8 {fp32_ms:.1f} ms under "
+        f"PyTorch's TF32 defaults, {fp32_serve_launches} fp32 attention "
+        f"launches, the same bytes as with TF32 off, the caller's flags "
+        f"kept | {smi}"))
 
     # ---------------------------------------------------------------- path
     t0 = time.perf_counter()
@@ -637,6 +969,27 @@ def main() -> None:
                  f"(max |diff| {max_diff})")
         detail.append(f"card {name} vs CPU fp32: max |diff| {max_diff:.3e}, "
                       f"PSNR {db:.2f} dB (limit {limit})")
+    # What the fp32 mode gave before it set its own precision: the same
+    # sampler with cuDNN's TF32 on (PyTorch's default), outside the
+    # Enhancer's precision context.
+    cfg = dataclasses.replace(cfg64, bf16=False)
+    model = build_model(cfg)
+    model.load_state_dict(state, strict=True)
+    model = model.to("cuda").eval()
+    set_tf32(torch, TF32_DEFAULTS)
+    tf32_out = dpm_solver_pp_2m_sample(
+        lambda x6, t, context_zero=True: model(x6, t,
+                                               context_zero=context_zero),
+        linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T),
+        normalize_uint8(torch.from_numpy(cond).cuda()),
+        steps=cfg.ddim_step, init_noise=torch.from_numpy(noise).cuda())
+    set_tf32(torch, (False, False))
+    tf32_out = ((tf32_out + 1.0) / 2.0).cpu().numpy().astype(np.float64)
+    tf32_db = psnr(tf32_out, cpu)
+    detail.append(f"card fp32 with TF32 convolutions (the old default) vs "
+                  f"CPU fp32: max |diff| {np.abs(tf32_out - cpu).max():.3e}, "
+                  f"PSNR {tf32_db:.2f} dB; vs the card's fp32 path: PSNR "
+                  f"{psnr(tf32_out, outs['cuda', False]):.2f} dB")
     phase_done("path", t0, "64² batch 2 DPM++2M-5; " + "; ".join(detail))
     del state
 
@@ -658,6 +1011,51 @@ def main() -> None:
         f"(limit {tp['grad_bound']:.3e}, κ {tp['kappa']:.3e}); with TF32 "
         f"on: loss rel {tp['tf32_loss_rel']:.3e}, gradients rel "
         f"{tp['tf32_grad_rel']:.3e}"))
+
+    # ---------------------------------------------------------------- loop
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="hdt_chip_smoke_"))
+    try:
+        t0 = time.perf_counter()
+        lp = phase_loop(att, torch, np, tmp)
+        phase_done("loop", t0, (
+            f"cli train at the flagship width (256², batch 16, bf16, "
+            f"default loss with DINO, EMA, r5 warm start), synthetic corpus: "
+            f"{lp['steps']} steps in 2 stages, median step inside train() "
+            f"{lp['median_step_ms']:.1f} ms, median gap between steps "
+            f"{lp['median_gap_ms']:.1f} ms, probe calls (DPM++2M-15, batch "
+            f"{lp['probe_batch']}) {[round(x, 1) for x in lp['probe_call_ms']]}"
+            f" ms, saves {[round(x) for x in lp['save_ms']]} ms of "
+            f"{lp['save_gib']:.3f} GiB each, export subtree {lp['export']}; "
+            f"resumed at step {lp['resumed_from']} and took "
+            f"{lp['resumed_steps']} more; attention launches "
+            f"{lp['launches']} (4 a step, 60 a probe call) | {smi}"))
+        print("  loop " + json.dumps(lp), flush=True)
+
+        # ------------------------------------------------------------ eval
+        t0 = time.perf_counter()
+        ev = phase_eval(att, torch, np, tmp)
+        res = ev["results"]
+        n_img = sum(r["n_images"] for r in res.values())
+        wall = sum(r["sample_wall_s"] for r in res.values())
+        phase_done("eval", t0, (
+            f"cli test, DPM++2M-5, FID (He-rescaled random Inception) on: "
+            f"{n_img} images in {ev['sampler_calls']} sampler calls, "
+            f"sample_wall_s {wall:.3f} ({n_img / wall:.2f} img/s), "
+            f"fetch_block_s "
+            f"{sum(r['fetch_block_s'] for r in res.values()):.3f}, "
+            f"fid_block_s {sum(r['fid_block_s'] for r in res.values()):.3f}, "
+            f"time_cost "
+            f"{sum(r['time_cost'] for r in res.values()):.3f}s; "
+            + "; ".join(f"{d}: PSNR {r['psnr']:.2f} SSIM {r['ssim']:.4f} "
+                        f"UIQM {r['uiqm']:.3f} FID {r['fid']:.4f}"
+                        for d, r in res.items())
+            + f"; attention launches {ev['launches']} (20 a batch) | {smi}"))
+        print("  eval " + json.dumps(ev), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # Each kernel at the shape the serve phase gave it, with its launches
     # there: bf16 in the bf16 calls, fp32 in the full-precision request.
@@ -684,6 +1082,10 @@ def main() -> None:
             "library_ms": row["library_ms"],
             "train_launches": (train["launches"]
                                if row["kernel"] == "attention_fwd" else 0),
+            "loop_launches": (lp["launches"]
+                              if row["kernel"] == "attention_fwd" else 0),
+            "eval_launches": (ev["launches"]
+                              if row["kernel"] == "attention_fwd" else 0),
             "fwd_bwd_shape": [g["B"], g["N"], g["h"], g["d"]],
             "fwd_bwd_ms": g["fwd_bwd_ms"],
             "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],

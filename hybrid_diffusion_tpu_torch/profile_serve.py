@@ -4,10 +4,12 @@
 
 Builds the flagship Enhancer (256², bf16, DPM++2M-5, the r5 flagship npz,
 batch 8) on the card, or with --fp32 its full-precision mode (bf16=False,
-with TF32 off for matmuls and cuDNN as in chip_smoke.py, so that every
-product is fp32-accurate; with --keep-tf32, PyTorch's defaults instead,
-under which cuDNN runs the convolutions on TF32: what a process that sets
-nothing gets from Enhancer(bf16=False)), times CALLS warm device calls with the host clock
+with the caller's TF32 flags turned off for matmuls and cuDNN as in
+chip_smoke.py; with --keep-tf32 the caller's flags stay at PyTorch's
+defaults, cuDNN's TF32 on: what a process that sets nothing gets. The
+Enhancer's fp32 calls turn TF32 off themselves (utils/precision.py), so
+both give fp32 convolutions; before that repair --keep-tf32 ran them on
+TF32), times CALLS warm device calls with the host clock
 (each ends in a copy to the host), then traces one more call with
 torch.profiler and prints the device time by kernel class (attention
 kernel, convolutions, matrix products, GroupNorm, copies and casts, other
@@ -60,7 +62,8 @@ def main() -> None:
     parser.add_argument("--fp32", action="store_true",
                         help="serve in fp32 (bf16=False), TF32 off")
     parser.add_argument("--keep-tf32", action="store_true",
-                        help="with --fp32: keep PyTorch's TF32 defaults")
+                        help="with --fp32: leave the caller's TF32 flags at "
+                             "PyTorch's defaults")
     args = parser.parse_args()
     fp32 = args.fp32
     if fp32 and not args.keep_tf32:

@@ -6,26 +6,30 @@ Counterpart of `hybrid_diffusion_tpu/serve.py::Enhancer` (:36-87):
   - every device call runs ONE padded batch shape (`max_batch`); short
     batches are padded;
   - a warm-up call at construction builds the kernel and primes the caches;
-  - uint8 NHWC images in, uint8 NHWC images out.
-
-Inputs must already be `img_size` square: the host-side resize of the JAX
-Enhancer (data/native.py) comes with the data slice, and until then an
-off-size input raises ValueError.
+  - uint8 NHWC images in, uint8 NHWC images out; inputs of any size are
+    resized on the host to `img_size` by the native batch resizer
+    (data/native.py, bilinear) and the outputs back to each input's size;
+  - an fp32 Enhancer (bf16=False) samples with TF32 off and the caller's
+    TF32 flags restored after each call (utils/precision.py).
 
 Usage:
     enh = Enhancer(flagship_config(), "docs/assets/flagship256_r5_fp16.npz")
     out = enh.enhance(images)           # list[HWC uint8] -> list[HWC uint8]
+    out = enh.enhance_paths(["a.png"])  # files -> arrays
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .config import Config
-from .train.loop import build_model, make_sampler, resolve_device
+from .data.native import BILINEAR, batch_resize
+from .train.loop import build_model, make_sampler
+from .utils.device import resolve_device
 from .weights import load_npz_state_dict
 
 
@@ -60,17 +64,30 @@ class Enhancer:
         return out[:n].cpu().numpy()
 
     def enhance(self, images: Sequence[np.ndarray]) -> list[np.ndarray]:
-        """Enhance (img_size, img_size, 3) uint8 images."""
+        """Enhance HWC uint8 images of any sizes; outputs match inputs'
+        original sizes (the model runs at config.img_size)."""
         if not len(images):
             return []
-        for im in images:
-            if im.shape != (self.size, self.size, 3) or im.dtype != np.uint8:
-                raise ValueError(
-                    f"Enhancer takes ({self.size}, {self.size}, 3) uint8 "
-                    f"images, got {im.shape} {im.dtype}; resizing other "
-                    f"sizes comes with the data slice (ROADMAP.md)")
-        batch = np.stack(images)
+        sizes = [im.shape[:2] for im in images]
+        batch = batch_resize(list(images), (self.size, self.size), BILINEAR)
         outs: list[np.ndarray] = []
         for lo in range(0, len(images), self.max_batch):
             outs.extend(self._run(batch[lo: lo + self.max_batch]))
+        return [
+            batch_resize([o], (h, w), BILINEAR)[0] if (h, w) != o.shape[:2]
+            else o
+            for o, (h, w) in zip(outs, sizes)
+        ]
+
+    def enhance_paths(self, paths: Sequence[str],
+                      output_dir: Optional[str] = None) -> list[np.ndarray]:
+        """Enhance image files; optionally write enhanced_<name> files."""
+        from .data.registry import load_image, save_image
+
+        outs = self.enhance([load_image(p) for p in paths])
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            for p, o in zip(paths, outs):
+                save_image(os.path.join(output_dir,
+                                        f"enhanced_{os.path.basename(p)}"), o)
         return outs

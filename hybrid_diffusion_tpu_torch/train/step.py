@@ -37,6 +37,7 @@ from ..diffusion.process import predict_x0_from_eps, q_sample
 from ..diffusion.schedule import DiffusionSchedule
 from ..losses.composite import CompositeLossConfig, composite_enhancement_loss
 from ..models.unet import NUM_MIDDLE_BLOCKS, domain_gates_from_batch
+from ..utils.precision import precision_for
 from .train_state import TrainState
 
 
@@ -162,16 +163,30 @@ def gated_update(state: TrainState,
     """The step's update from the gradients that backward left: with
     `gates`, the middle blocks' gradients gated, then clip + AdamW, then
     the gated blocks' parameters and moments blended back; then the EMA.
-    Returns the global norm of the (gated) gradients before the clip."""
+    With grad_accum k > 1 the gradients first enter the running mean, and
+    the update runs on the mean at every k-th call (a block gated off at a
+    call keeps its running mean, as the JAX blend of MultiSteps' state
+    does). Returns the global norm of this call's (gated) gradients."""
+    closed = None
     if gates is not None:
         apply_domain_gates(state.params, gates)
+        closed = {n: gates[middle_block(n)] <= 0 for n in state.params
+                  if middle_block(n) is not None}
+    if state.grad_accum > 1:
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(state.grads())))
+        if not state.accumulate(closed):
+            return grad_norm
+    if gates is not None:
         before = _gated_snapshot(state)
-    grad_norm = state.apply_gradients()
+    clipped_norm = state.apply_gradients()
     if gates is not None:
         blend_by_gates(state.params, before["param"], gates)
         for key in ("exp_avg", "exp_avg_sq"):
             blend_by_gates({n: state.moments(n)[key] for n in before[key]},
                            before[key], gates)
+    if state.grad_accum == 1:
+        grad_norm = clipped_norm
     state.update_ema()
     return grad_norm
 
@@ -187,7 +202,8 @@ def make_train_step(
     """step(state, batch, generator, t=None, noise=None) -> (state,
     metrics), closed over the static configuration. The schedule's tables
     are copied to the model's device on the first call (a copy from the
-    host at every step would wait for the card)."""
+    host at every step would wait for the card). An fp32 model's step runs
+    with TF32 off (utils/precision.py)."""
     tables = None
 
     def step(state, batch, generator, t=None, noise=None):
@@ -198,8 +214,9 @@ def make_train_step(
                 f.name: torch.as_tensor(getattr(schedule, f.name),
                                         device=device)
                 for f in dataclasses.fields(schedule)})
-        return diffusion_train_step(
-            state, batch, generator, tables, loss_config, dino_loss_fn,
-            use_conditioning, p_uncond, domain_routing, t=t, noise=noise)
+        with precision_for(state.model.dtype != torch.float32):
+            return diffusion_train_step(
+                state, batch, generator, tables, loss_config, dino_loss_fn,
+                use_conditioning, p_uncond, domain_routing, t=t, noise=noise)
 
     return step

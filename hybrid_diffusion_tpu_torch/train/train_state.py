@@ -15,7 +15,19 @@ arithmetic:
     blend.
 
 The state updates the model's parameters in place (the JAX state is
-immutable and donated). `grad_accum` > 1 (optax.MultiSteps) is not ported.
+immutable and donated).
+
+`grad_accum` k > 1 follows optax.MultiSteps (the JAX state's
+`train_state.py:84-85`): each micro-step's gradients enter a running mean,
+acc ← acc + (g − acc)/(m + 1) for micro-step m; every k-th micro-step the
+clip, AdamW, the schedule and the EMA advance once, on the mean, and the
+mean starts again from zero. So k micro-batches of B give the update of
+one batch of k·B. `step` counts updates. (The JAX state advances its EMA
+and its `step` at every micro-step; this one, as one batch of k·B would,
+once an update.) The domain gates act as the JAX blend makes them act
+through MultiSteps: a middle block gated off at a micro-step keeps its
+running mean as it was, and one gated off at the update's micro-step keeps
+its parameters and moments (train/step.py:gated_update).
 """
 
 from __future__ import annotations
@@ -35,10 +47,6 @@ class TrainState:
                  total_epochs: int = 1000, steps_per_epoch: int = 100,
                  multiplier: float = 2.0, warm_epochs: Optional[int] = None,
                  ema_decay: float = 0.0, grad_accum: int = 1):
-        if grad_accum > 1:
-            raise NotImplementedError(
-                "grad_accum > 1 (optax.MultiSteps) is not ported yet "
-                "(ROADMAP.md, queue 1, item 6)")
         self.model = model
         self.params: Dict[str, torch.nn.Parameter] = dict(
             model.named_parameters())
@@ -50,6 +58,11 @@ class TrainState:
             list(self.params.values()), lr=self.schedule(0),
             betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.step = 0
+        self.grad_accum = max(grad_accum, 1)
+        self.mini_step = 0
+        self.acc_grads: Optional[Dict[str, torch.Tensor]] = (
+            {n: torch.zeros_like(p) for n, p in self.params.items()}
+            if self.grad_accum > 1 else None)
         self.ema_decay = ema_decay
         self.ema_params: Optional[Dict[str, torch.Tensor]] = (
             {n: p.detach().clone() for n, p in self.params.items()}
@@ -84,6 +97,31 @@ class TrainState:
         torch._foreach_mul_(grads, torch.where(keep, one,
                                                one * self.grad_clip))
         return g_norm
+
+    @torch.no_grad()
+    def accumulate(self, keep: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> bool:
+        """Fold this micro-step's gradients into the running mean; True when
+        the micro-step is the update's: the gradients then hold the mean,
+        and the running mean starts again from zero.
+
+        keep: {name: bool device scalar} of parameters whose stored mean
+        stays as it was (the middle blocks gated off at this micro-step;
+        their gradient, zero, still enters the mean the update reads, as in
+        the JAX step, which blends MultiSteps' state back after it)."""
+        m = self.mini_step
+        self.mini_step = (m + 1) % self.grad_accum
+        due = self.mini_step == 0
+        for name, g in zip(self.params, self.grads()):
+            acc = self.acc_grads[name]
+            new = acc + (g - acc) / (m + 1)
+            if due:
+                g.copy_(new)
+                new = torch.zeros_like(new)
+            if keep is not None and name in keep:
+                new = torch.where(keep[name], acc, new)
+            acc.copy_(new)
+        return due
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip, then one AdamW update at schedule(step). Returns the

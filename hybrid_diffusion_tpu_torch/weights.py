@@ -14,7 +14,9 @@ The port names its modules after the flax ones, so a flax path maps onto a
   - `time_embedding/table`, the ViT's `cls_token`, `pos_embed` and
     LayerScale `gamma_1`, `gamma_2` are parameters and keep their names.
 
-Stored fp16 becomes fp32 master weights. `flat_from_state_dict` is the
+Stored fp16 becomes fp32 master weights. `inception_state_dict_from_flat`
+also carries the JAX FID's Inception variables, BatchNorm statistics
+(`batch_stats/.../mean`, `var`) included. `flat_from_state_dict` is the
 inverse: a state_dict becomes the flat `params/...` arrays that the JAX
 package's `load_params_npz` reads, and `save_npz_state_dict` writes them as
 its `save_params_npz` does (fp16 by default).
@@ -112,3 +114,26 @@ def save_npz_state_dict(path, state: Mapping[str, torch.Tensor],
     """Write a state_dict as the flat npz that the JAX package's
     `load_params_npz` reads (fp16 by default, as its `save_params_npz`)."""
     save_params_npz(path, flat_from_state_dict(state, num_heads), dtype)
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def inception_state_dict_from_flat(flat: Dict[str, np.ndarray]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX `InceptionV3Features` variables as a flat {path: array}
+    ("params/.../conv/kernel", "params/.../bn/scale" and "bias",
+    "batch_stats/.../bn/mean" and "var") -> the port's state_dict (conv
+    kernels OIHW, BatchNorm weight, bias, running_mean, running_var), in
+    fp32."""
+    params, out = {}, {}
+    for path, array in flat.items():
+        parts = path.split("/")
+        if parts[0] == "batch_stats":
+            key = ".".join(parts[1:-1] + [_BN_STATS[parts[-1]]])
+            out[key] = torch.from_numpy(np.array(array, np.float32, order="C"))
+        else:
+            params[path] = array
+    out.update(state_dict_from_flat(params))
+    return out
+

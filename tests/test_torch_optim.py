@@ -170,8 +170,13 @@ def test_clip_is_optax_form_without_epsilon():
 
 
 def test_grad_accum_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainState(nn.Linear(2, 2), grad_accum=2)
+    """The name is historical: grad_accum > 1 raised NotImplementedError
+    here until it was ported (optax.MultiSteps, held against optax in
+    tests/test_torch_loop.py). The test now checks that the state keeps a
+    running mean of the gradients and starts at micro-step 0."""
+    state = TrainState(nn.Linear(2, 2), grad_accum=2)
+    assert state.grad_accum == 2 and state.mini_step == 0
+    assert set(state.acc_grads) == set(state.params)
 
 
 @pytest.mark.parametrize("blue", [True, False])

@@ -92,9 +92,10 @@ def test_unknown_parameter_is_refused():
 # ---------------------------------------------------------------- hygiene
 
 
-def _imported_roots(path: Path) -> set[str]:
+def _imported_roots(path: Path, top_level_only: bool = False) -> set[str]:
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in (tree.body if top_level_only else ast.walk(tree)):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -102,12 +103,22 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+# The image codecs the card's machine lacks: the port may use them where
+# they are installed (load_image, save_image, as the JAX package does), so
+# only inside a function, never when a module is imported;
+# test_port_runs_with_jax_blocked runs the port with them blocked.
+OPTIONAL = ("cv2", "PIL")
+
+
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     for f in files:
-        bad = _imported_roots(f) & set(FORBIDDEN)
+        bad = _imported_roots(f) & (set(FORBIDDEN) - set(OPTIONAL))
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
+        bad = _imported_roots(f, top_level_only=True) & set(OPTIONAL)
+        assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)} " \
+            f"at module level"
 
 
 def test_port_runs_with_jax_blocked():
@@ -180,5 +191,9 @@ def test_enhancer_on_cpu_pads_short_batches(small_npz):
     assert all(o.dtype == np.uint8 for o in outs)
     assert enh.enhance([]) == []
     assert port_attention.launch_count == 0            # CPU: plain version
-    with pytest.raises(ValueError, match="data slice"):
-        enh.enhance([np.zeros((8, 8, 3), np.uint8)])
+    # Off-size inputs are resized to img_size and back (data/native.py).
+    calls = enh.device_calls
+    odd = enh.enhance([np.zeros((8, 8, 3), np.uint8),
+                       np.full((20, 12, 3), 7, np.uint8)])
+    assert [o.shape for o in odd] == [(8, 8, 3), (20, 12, 3)]
+    assert enh.device_calls == calls + 1
