@@ -16,8 +16,9 @@ From a clean checkout, with no arguments, it:
             (tensor-core) instructions (cuobjdump -sass), and fails if one
             has none or spills;
   3. kernel holds the kernels against their plain PyTorch version on the
-            card at the shapes the serve, path, train, loop and eval phases
-            give them (the loop's probe at its own batch, 9), at
+            card at the shapes the serve, path, train, loop, eval and cfg
+            phases give them (the loop's probe at its own batch, 9; the CFG
+            model's four at 2B = 160, within CFG_RTOL of max|out|), at
             bf16 / fp16 / fp32, d = 16 / 64, a ragged N and inputs that
             catch a missing mask, and times kernel, plain version and
             scaled_dot_product_attention (CUDA events, median of 25, with
@@ -32,14 +33,25 @@ From a clean checkout, with no arguments, it:
             defaults and with them off; the two must give the same bytes
             and leave the caller's flags as they were (the fp32 mode sets
             its own precision);
-  5. path   runs the same weights at 64², batch 2, on one numpy initial
+  5. export export_enhancer of the serve phase's bf16 Enhancer (the whole
+            program, DPM++2M-5 at batch 8, as a torch.export artifact),
+            load_exported, and one call of the loaded program: 20 launches
+            of the bf16 kernel, its bytes within EXPORT_MAX_LEVELS of the
+            Enhancer's on the same noise; prints the export's and load's
+            seconds and both calls' times;
+  6. http   serve_http on 127.0.0.1 (port 0) over a flagship Enhancer
+            (max_batch 1): POST /enhance of a 256² PNG, a 300×200 one and a
+            256² one with ?size=128x96 (20 launches each, the outputs at the
+            asked sizes), /healthz, /stats and a bad body (a 4xx); prints
+            each request's latency;
+  7. path   runs the same weights at 64², batch 2, on one numpy initial
             noise through DPM++2M-5 on the card in fp32 (the fp32 kernel)
             and in bf16 (the bf16 kernel), 20 launches each, and on the CPU
             in fp32 (plain version), and requires PSNR ≥ 40 dB (fp32) and
             ≥ 38 dB (bf16) against the CPU; prints beside them the fp32
             sampler with cuDNN's TF32 on (what the fp32 mode gave before it
             set its own precision);
-  6. train  takes TRAIN_STEPS training steps at the flagship width (256²,
+  8. train  takes TRAIN_STEPS training steps at the flagship width (256²,
             batch 16, bf16, the default composite loss with the DINO term
             on a random-init ViT-S at 252², dropout 0.15, domain routing,
             EMA 0.99875, lr 1e-5, warm-started from the r5 npz) on numpy
@@ -49,14 +61,14 @@ From a clean checkout, with no arguments, it:
             AdamW moments bit for bit as they were while the open ones move;
             prints the median step time after the first, the peak memory
             and the card's nvidia-smi line;
-  7. tparity one fp32 step (TF32 off) at 64², batch 2, from the npz, dropout
+  9. tparity one fp32 step (TF32 off) at 64², batch 2, from the npz, dropout
             0, fixed t and noise, on the card and on the CPU: the losses
             within TRAIN_LOSS_RTOL and the gradients' difference within
             max(TRAIN_GRAD_FLOOR, 10 κ) of their norm, κ being the CPU
             step's own change when every weight moves by one ulp; prints
             the same step on the card with the caller's TF32 on beside that
             bound (the step turns it off, so it reads as the fp32 one);
-  8. loop   cli.main(--state train) at the flagship width on the synthetic
+  10. loop  cli.main(--state train) at the flagship width on the synthetic
             corpus at 256² (64 train, 9 val, 18 test pairs a domain; batch
             16, bf16, the default loss with DINO, EMA 0.99875, lr 1e-5, the
             r5 warm start, one epoch a stage, the probe and a save every
@@ -69,11 +81,28 @@ From a clean checkout, with no arguments, it:
             saved step must continue from it; prints the step time inside
             train() (synchronized after each step), the gap between steps,
             the probe calls', saves' and exports' times;
-  9. eval   cli.main(--state test) on that export with FID on (He-rescaled
+  11. eval  cli.main(--state test) on that export with FID on (He-rescaled
             random Inception at 256²): finite metrics and FID for both
             domains, n_images the test split's, 20 launches a sampled
             batch; prints sample_wall_s, images/s, fetch_block_s and
-            fid_block_s (the host's waits on the card).
+            fid_block_s (the host's waits on the card);
+  12. cfg   train_cfg at CFGConfig() (batch 80, 32², ch 128, mult
+            (1, 2, 2, 2), 2 res blocks, T 500, bf16, the synthetic labeled
+            set) for CFG_TRAIN_STEPS steps, 21 launches each, then
+            evaluate_cfg from its checkpoint over the whole T = 500 chain at
+            w 1.8 on the 10 × 8 label grid: 500 calls of 2B = 160, each with
+            21 launches, 5 / 5 / 5 / 6 at (N, d) = (1024, 16), (256, 32),
+            (64, 32), (16, 32); prints the seconds, images/s and peak GiB;
+            then the fp32 CFGUNet forward (batch 4) on the card against the
+            CPU's on the same weights, within max(CFG_FWD_FLOOR, 10 κ);
+  13. ddpm  the flagship npz at 64², batch 2, fp32, through make_sampler's
+            ddpm branch over the full T = 1000 chain (4000 fp32 launches),
+            finite and in range; one step (t = 999) card against CPU on
+            injected noise within DDPM_STEP_RTOL;
+  14. vgg   VGG_STEPS flagship-width bf16 steps (batch 16) under the
+            run-book's stage-1 loss set (vgg 1, charbonnier 1, the rest 0)
+            with vgg16 at random init: 4 launches a step, finite losses;
+            prints the step time and peak memory.
 
 The kernel phase also holds the attention's forward and gradients (the
 kernel's forward inside the autograd Function, the backward recomputed
@@ -100,7 +129,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "hybrid_diffusion_tpu_torch"
 FLAGSHIP_NPZ = ROOT / "docs" / "assets" / "flagship256_r5_fp16.npz"
-BUDGET_S = 300.0
+BUDGET_S = 600.0
 T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, and FLOP/s of the
@@ -198,6 +227,38 @@ PATH_PSNR_BF16_DB = 38.0
 # pairs a domain (data/datasets.py::make_dataset).
 LOOP_SYNTHETIC_LENGTH = 64
 
+# The cfg phase: CFGConfig() defaults (32², ch 128, mult (1, 2, 2, 2), 2 res
+# blocks, 8 heads, T 500, bf16, batch 80), the synthetic labeled set. One
+# CFGUNet call under guidance runs 2B = 160 images (the 10 × 8 label grid)
+# and launches the attention kernel 21 times: (N, d) -> launches a call.
+CFG_TRAIN_STEPS = 4
+CFG_BATCH = 160
+CFG_SHAPES = {(1024, 16): 5, (256, 32): 5, (64, 32): 5, (16, 32): 6}
+CFG_CASES = [(CFG_BATCH, N, 8, d, "bfloat16", "randn") for N, d in CFG_SHAPES]
+# Their tolerance is relative to the largest output: at N 16 the outputs
+# reach about 2.2 (an average of 16 values), where half a unit in bf16's
+# last place is 2^-8, not the 0.03-0.07 of N 1024 that ATOL was set for.
+# The CPU emulation of the kernel errs by at most 3.4e-3 of max|out| at
+# these shapes (tests/test_torch_cfg.py); 2^-6 is 4.6 times that.
+CFG_RTOL = 2.0 ** -6
+# The cfg phase's card-vs-CPU fp32 forward (batch 4, the trained weights):
+# within max(CFG_FWD_FLOOR, 10 κ) of max|CPU|, κ the CPU forward's own
+# change when every weight moves by one ulp.
+CFG_FWD_FLOOR = 1e-4
+# The ddpm phase's one step on injected noise, card against CPU in fp32:
+# the step scales ε by coeff2 (0.02 at t = 999), so ε's own rounding
+# (rel ~1e-6, the path phase's fp32 PSNR) moves it by ~1e-8 of its size.
+DDPM_STEP_RTOL = 1e-5
+# The vgg phase: flagship-width bf16 steps under the run-book's stage-1 loss
+# set, vgg16 at random init.
+VGG_STEPS = 3
+STAGE1_LOSSES = "vgg=1.0,charbonnier=1.0,dino=0,ms_ssim=0,color=0"
+# The export phase: the loaded artifact runs the same kernels on the same
+# inputs in the same order as the Enhancer, so its bytes should be equal;
+# one uint8 level is allowed where a decomposed op (the export's ATen graph)
+# sums in another order and a value crosses a quantization boundary.
+EXPORT_MAX_LEVELS = 1
+
 
 def mask_trap_qkv(rng, B: int, N: int, h: int, d: int):
     """Packed (B, N, 3, h, d) float32 q|k|v whose every real score
@@ -289,18 +350,17 @@ def probe_case() -> tuple:
 
 
 def phase_kernel(att, torch, device_ms, host_ms):
-    """Kernels vs their plain version on the card, at KERNEL_CASES and the
-    probe's shape; returns the rows."""
+    """Kernels vs their plain version on the card, at KERNEL_CASES, the
+    probe's shape and the CFG shapes; returns the rows."""
     import numpy as np
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(0)
     rng = np.random.default_rng(0)
     rows = {}
-    for case in KERNEL_CASES + [probe_case()]:
+    for case in KERNEL_CASES + [probe_case()] + CFG_CASES:
         B, N, h, d, dname, inputs = case
         dtype = getattr(torch, dname)
-        atol = ATOL[dname, inputs]
         # Strided views of one packed projection, as the model hands them over.
         if inputs == "randn":
             qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen,
@@ -316,6 +376,8 @@ def phase_kernel(att, torch, device_ms, host_ms):
                  f"and a {out.dtype} output for {dtype} inputs")
         ref = att.attention_reference(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
+        atol = (CFG_RTOL * ref.abs().max().item() if case in CFG_CASES
+                else ATOL[dname, inputs])
         if not math.isfinite(err) or err > atol:
             fail(f"attention kernel disagrees with its plain version at "
                  f"B={B} N={N} h={h} d={d} {dtype} ({inputs}): max_abs_err "
@@ -800,6 +862,375 @@ def phase_eval(att, torch, np, tmp: Path) -> dict:
     return dict(results=results, launches=att.launch_counts["attention_fwd"],
                 sampler_calls=len(rec.samples))
 
+class LaunchShapes:
+    """Tallies the attention kernel's launches by (N, d) while entered, by
+    wrapping the wrapper's launch function (which keeps its own counts)."""
+
+    def __init__(self, att):
+        import collections
+
+        self.att, self.real = att, att._launch
+        self.by_shape = collections.Counter()
+
+    def __enter__(self):
+        def launch(q, k, v):
+            out = self.real(q, k, v)
+            self.by_shape[q.shape[1], q.shape[3]] += 1
+            return out
+
+        self.att._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.att._launch = self.real
+
+
+def phase_http(att, torch, np, Enhancer, flagship_config) -> dict:
+    """serve_http on 127.0.0.1 (port 0) over a flagship Enhancer (bf16,
+    DPM++2M-5, max_batch 1): three POST /enhance (256², 300×200, and 256²
+    with ?size=128x96), GET /healthz and /stats, a bad body; returns each
+    request's latency."""
+    import urllib.error
+    import urllib.request
+
+    from hybrid_diffusion_tpu_torch import serve_http
+    from hybrid_diffusion_tpu_torch.data.registry import _png_bytes, _png_decode
+
+    enh = Enhancer(flagship_config(), FLAGSHIP_NPZ, max_batch=1, device="cuda")
+    server = serve_http.serve(enh, host="127.0.0.1", port=0, block=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(5)
+    cases = [("", (256, 256), (256, 256)), ("", (200, 300), (200, 300)),
+             ("?size=128x96", (256, 256), (96, 128))]
+    latencies = []
+    try:
+        att.reset_launch_count()
+        for query, (h, w), want in cases:
+            body = _png_bytes(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            req = urllib.request.Request(f"{base}/enhance{query}", data=body,
+                                         method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                status, data = r.status, r.read()
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            out = _png_decode(data)
+            if status != 200 or out is None or out.shape[:2] != want:
+                fail(f"POST /enhance{query} of a {h}x{w} PNG gave status "
+                     f"{status} and {None if out is None else out.shape}, "
+                     f"expected {want}")
+        if att.launch_counts["attention_fwd"] != 20 * len(cases) \
+                or att.launch_count != 20 * len(cases):
+            fail(f"{len(cases)} requests launched the kernels "
+                 f"{att.launch_counts}, expected the bf16 kernel 20 times each")
+        req = urllib.request.Request(f"{base}/enhance", data=b"not an image",
+                                     method="POST")
+        try:
+            urllib.request.urlopen(req, timeout=30)
+            fail("a bad body got a 2xx")
+        except urllib.error.HTTPError as e:
+            if not 400 <= e.code < 500:
+                fail(f"a bad body got HTTP {e.code}, expected a 4xx")
+            bad_code = e.code
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        if health != {"status": "ok", "requests": len(cases)} \
+                or stats["errors"] != 1:
+            fail(f"/healthz {health}, /stats {stats}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    del enh
+    return dict(latency_ms=latencies, bad_body_code=bad_code, stats=stats)
+
+
+def phase_export(att, torch, np, enh, batch_u8) -> dict:
+    """export_enhancer of the flagship Enhancer, load_exported, and the
+    loaded program against the Enhancer on the same noise; returns the
+    times, the artifact's size and the difference."""
+    from hybrid_diffusion_tpu_torch.serve import export_enhancer, load_exported
+
+    t0 = time.perf_counter()
+    data = export_enhancer(enh)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = load_exported(data)
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(batch_u8).cuda()
+    att.reset_launch_count()
+    out = run(x, torch.Generator("cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in att.launch_counts.items() if n}
+    if counts != {"attention_fwd": 20}:
+        fail(f"one call of the exported program launched {counts}, expected "
+             f"the bf16 kernel 20 times and no other")
+    noise = torch.randn(x.shape, generator=torch.Generator("cuda").manual_seed(7),
+                        device="cuda")
+    want = enh._sample(x, None, noise)
+    diff = (out.int() - want.int()).abs()
+    max_diff, n_diff = int(diff.max()), int((diff > 0).sum())
+    if out.dtype != torch.uint8 or out.shape != want.shape \
+            or max_diff > EXPORT_MAX_LEVELS:
+        fail(f"the exported program gave {out.dtype} {tuple(out.shape)}, "
+             f"{n_diff} bytes off the Enhancer's by up to {max_diff} levels "
+             f"(limit {EXPORT_MAX_LEVELS})")
+    timings = {}
+    for name, fn in (("exported", lambda: run(x)),
+                     ("enhancer", lambda: enh._sample(x, None, noise))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        timings[name] = (time.perf_counter() - t0) / 3 * 1e3
+    return dict(export_s=export_s, load_s=load_s, mib=len(data) / 2**20,
+                max_diff=max_diff, bytes_diff=n_diff,
+                exported_call_ms=timings["exported"],
+                enhancer_call_ms=timings["enhancer"])
+
+
+def phase_cfg(att, torch, np, tmp: Path) -> dict:
+    """train_cfg at CFGConfig() for CFG_TRAIN_STEPS steps, evaluate_cfg from
+    its checkpoint over the whole T = 500 chain at w 1.8 on the 10 × 8 label
+    grid (500 calls of 2B = 160), and the fp32 forward card against CPU;
+    returns the phase's record."""
+    import dataclasses as dc
+
+    from hybrid_diffusion_tpu_torch.cfg import train as cfg_train
+    from hybrid_diffusion_tpu_torch.train.checkpoint import restore_params
+
+    config = cfg_train.CFGConfig(save_dir=str(tmp / "cfg_ck"),
+                                 sampled_dir=str(tmp / "cfg_out"),
+                                 device="cuda")
+    steps, calls = [], []
+    real_step, real_sample = (cfg_train.make_cfg_train_step,
+                              cfg_train.cfg_ddpm_sample)
+
+    def make_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            before = att.launch_count
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            loss = float(metrics["loss"])
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              launches=att.launch_count - before, loss=loss))
+            return state, metrics
+
+        return timed
+
+    def sample(denoise_fn, *args, **kwargs):
+        def counted(x, t, labels):
+            before = att.launch_count
+            out = denoise_fn(x, t, labels)
+            calls.append((x.shape[0], att.launch_count - before))
+            return out
+
+        return real_sample(counted, *args, **kwargs)
+
+    cfg_train.make_cfg_train_step, cfg_train.cfg_ddpm_sample = make_step, sample
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        summary = cfg_train.train_cfg(config, max_steps=CFG_TRAIN_STEPS)
+        train_gib = torch.cuda.max_memory_allocated() / 2**30
+        ckpt = summary["checkpoints"][-1]
+        del summary
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.reset_launch_count()
+        with LaunchShapes(att) as shapes:
+            t0 = time.perf_counter()
+            imgs = cfg_train.evaluate_cfg(config, checkpoint_path=ckpt)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+        eval_gib = torch.cuda.max_memory_allocated() / 2**30
+        eval_launches = att.launch_counts["attention_fwd"]
+        other = att.launch_count - eval_launches
+    finally:
+        cfg_train.make_cfg_train_step = real_step
+        cfg_train.cfg_ddpm_sample = real_sample
+    if len(steps) != CFG_TRAIN_STEPS or any(
+            st["launches"] != 21 or not math.isfinite(st["loss"])
+            for st in steps):
+        fail(f"train_cfg steps {steps}: expected {CFG_TRAIN_STEPS} finite "
+             f"steps of 21 launches")
+    n_img = config.num_labels * config.nrow
+    if len(calls) != config.T or any(c != (CFG_BATCH, 21) for c in calls):
+        fail(f"evaluate_cfg made {len(calls)} model calls with (batch, "
+             f"launches) {sorted(set(calls))}, expected {config.T} of "
+             f"({CFG_BATCH}, 21)")
+    per_call = {f"N{n} d{d}": shapes.by_shape[n, d] / len(calls)
+                for n, d in CFG_SHAPES}
+    if other or dict(shapes.by_shape) != {
+            k: v * len(calls) for k, v in CFG_SHAPES.items()}:
+        fail(f"evaluate_cfg launched the kernels by shape {dict(shapes.by_shape)}"
+             f" ({other} launches of another kernel), expected per call "
+             f"{CFG_SHAPES}")
+    if imgs.shape != (n_img, 32, 32, 3) or imgs.dtype != np.uint8 \
+            or int(np.ptp(imgs)) == 0:
+        fail(f"evaluate_cfg gave {imgs.shape} {imgs.dtype} with range "
+             f"{np.ptp(imgs)}")
+    if not (tmp / "cfg_out" / "SampledGuidenceImgs.png").is_file():
+        fail("evaluate_cfg wrote no PNG grid")
+
+    # The fp32 forward on the card against the CPU's, on the trained weights.
+    fp32 = dc.replace(config, bf16=False, dropout=0.0)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, config.T, (4,)))
+    labels = torch.tensor([0, 1, 5, 10])
+    outs = {}
+    for device, nudge in (("cuda", False), ("cpu", False), ("cpu", True)):
+        model = restore_params(ckpt, cfg_train.build_cfg_model(fp32)).eval()
+        if nudge:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(torch.from_numpy(1 + 2.0 ** -23 * rng.choice(
+                        [-1.0, 1.0], tuple(p.shape))).float())
+        model = model.to(device)
+        with torch.no_grad():
+            outs[device, nudge] = model(x.to(device), t.to(device),
+                                        labels.to(device)).double().cpu()
+    cpu = outs["cpu", False]
+    scale = float(cpu.abs().max())
+    fwd_rel = float((outs["cuda", False] - cpu).abs().max()) / scale
+    kappa = float((outs["cpu", True] - cpu).abs().max()) / scale
+    bound = max(CFG_FWD_FLOOR, 10 * kappa)
+    if not math.isfinite(fwd_rel) or fwd_rel > bound:
+        fail(f"card fp32 CFGUNet forward vs CPU: {fwd_rel} of max|out| > "
+             f"{bound} (κ {kappa})")
+    return dict(train_step_ms=[st["ms"] for st in steps],
+                train_losses=[st["loss"] for st in steps],
+                train_peak_gib=train_gib, eval_s=eval_s,
+                images_per_s=n_img / eval_s, eval_calls=len(calls),
+                eval_peak_gib=eval_gib, launches=eval_launches,
+                launches_per_call=per_call,
+                launches_by_shape={f"N{n} d{d}": c
+                                   for (n, d), c in shapes.by_shape.items()},
+                fp32_fwd_rel=fwd_rel, fp32_fwd_bound=bound, kappa=kappa)
+
+
+def phase_ddpm(att, torch, np) -> dict:
+    """The flagship npz at 64², batch 2, fp32, through make_sampler's ddpm
+    branch over the full T = 1000 chain; and one step (t = 999) on injected
+    noise, card against CPU; returns the phase's record."""
+    from hybrid_diffusion_tpu_torch.config import flagship_config
+    from hybrid_diffusion_tpu_torch.diffusion import (
+        ddpm_step, linear_beta_schedule)
+    from hybrid_diffusion_tpu_torch.train.loop import build_model, make_sampler
+    from hybrid_diffusion_tpu_torch.train.step import normalize_uint8
+    from hybrid_diffusion_tpu_torch.weights import load_npz_state_dict
+
+    cfg = dataclasses.replace(flagship_config(img_size=64, bf16=False),
+                              ddim=False, sampler="")
+    state = load_npz_state_dict(FLAGSHIP_NPZ)
+    models = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg)
+        model.load_state_dict(state, strict=True)
+        models[device] = model.to(device).eval()
+    rng = np.random.default_rng(12)
+    cond = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    att.reset_launch_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = make_sampler(cfg, models["cuda"])(
+        torch.from_numpy(cond).cuda(), torch.Generator("cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    counts = {k: n for k, n in att.launch_counts.items() if n}
+    if counts != {"attention_fwd_fp32": 4 * cfg.T}:
+        fail(f"the ddpm chain launched {counts}, expected the fp32 kernel "
+             f"{4 * cfg.T} times (4 a step)")
+    out = out.cpu().numpy()
+    if out.shape != (2, 64, 64, 3) or not np.isfinite(out).all() \
+            or out.min() < 0 or out.max() > 1 or out.std() == 0:
+        fail(f"the ddpm chain gave {out.shape}, range [{out.min()}, "
+             f"{out.max()}], std {out.std()}")
+
+    schedule = linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T)
+    y = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    z = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    step, eps = {}, {}
+    for device, model in models.items():
+        c = normalize_uint8(torch.from_numpy(cond).to(device))
+        yt = torch.from_numpy(y).to(device)
+        with torch.no_grad():
+            e = model(torch.cat([c, yt], dim=-1),
+                      torch.full((2,), cfg.T - 1, device=device))
+            step[device] = ddpm_step(schedule, yt, cfg.T - 1, e,
+                                     torch.from_numpy(z).to(device)
+                                     ).double().cpu()
+        eps[device] = e.double().cpu()
+    step_rel = float((step["cuda"] - step["cpu"]).abs().max()
+                     / step["cpu"].abs().max())
+    eps_rel = float((eps["cuda"] - eps["cpu"]).abs().max()
+                    / eps["cpu"].abs().max())
+    if not math.isfinite(step_rel) or step_rel > DDPM_STEP_RTOL:
+        fail(f"one ddpm step card vs CPU: rel {step_rel} > {DDPM_STEP_RTOL} "
+             f"(ε rel {eps_rel})")
+    return dict(chain_s=chain_s, steps=cfg.T, ms_per_step=chain_s / cfg.T * 1e3,
+                launches=counts["attention_fwd_fp32"], step_rel=step_rel,
+                eps_rel=eps_rel, out_mean=float(out.mean()),
+                out_std=float(out.std()))
+
+
+def phase_vgg(att, torch, np) -> dict:
+    """VGG_STEPS flagship-width bf16 steps (batch 16) under the run-book's
+    stage-1 loss set with vgg16 at random init; returns the phase's record."""
+    import statistics
+
+    from hybrid_diffusion_tpu_torch.config import flagship_config
+    from hybrid_diffusion_tpu_torch.diffusion import linear_beta_schedule
+    from hybrid_diffusion_tpu_torch.profile_train import (
+        FINE_TUNE, synthetic_batches)
+    from hybrid_diffusion_tpu_torch.train.loop import (
+        _make_vgg, create_train_state, init_params)
+    from hybrid_diffusion_tpu_torch.train.step import make_train_step
+
+    cfg = flagship_config(**FINE_TUNE, stage1_losses=STAGE1_LOSSES)
+    loss_cfg = cfg.stage_loss_config(0)
+    if not (loss_cfg.vgg_weight and loss_cfg.charbonnier_weight) or \
+            loss_cfg.dino_weight or loss_cfg.ms_ssim_weight \
+            or loss_cfg.color_weight:
+        fail(f"--stage1_losses {STAGE1_LOSSES!r} parsed to {loss_cfg}")
+    model = init_params(cfg, "cuda")
+    state = create_train_state(cfg, model, steps_per_epoch=100)
+    vgg = _make_vgg(cfg, [loss_cfg], "cuda")
+    step = make_train_step(
+        linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T), loss_cfg,
+        vgg_loss_fn=vgg, use_conditioning=cfg.use_conditioning,
+        p_uncond=cfg.p_uncond, domain_routing=cfg.domain_routing)
+    gen = torch.Generator("cuda").manual_seed(cfg.seed)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in synthetic_batches(VGG_STEPS, cfg.batch_size,
+                                          cfg.img_size)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for i, batch in enumerate(batches):
+        att.reset_launch_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        values = {k: float(v) for k, v in metrics.items()}
+        counts = {k: n for k, n in att.launch_counts.items() if n}
+        if counts != {"attention_fwd": 4} or "vgg" not in values \
+                or "dino" in values \
+                or not all(math.isfinite(v) for v in values.values()):
+            fail(f"vgg step {i}: launches {counts}, metrics {values}")
+        losses.append(values)
+    return dict(steps=len(batches), step_ms=[x * 1e3 for x in seconds],
+                median_step_ms=statistics.median(seconds[1:]) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                losses=losses)
+
 
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
@@ -883,7 +1314,6 @@ def main() -> None:
     n_img = sum(len(b) for b in requests)
     serve_s = sum(latencies)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    del enh
 
     # The full-precision serving mode (bf16=False) at full width: one
     # request of 8 through the fp32 kernel, with the caller's TF32 flags at
@@ -928,6 +1358,28 @@ def main() -> None:
         f"PyTorch's TF32 defaults, {fp32_serve_launches} fp32 attention "
         f"launches, the same bytes as with TF32 off, the caller's flags "
         f"kept | {smi}"))
+
+    # ---------------------------------------------------------------- export
+    t0 = time.perf_counter()
+    ex = phase_export(att, torch, np, enh, requests[0])
+    del enh
+    phase_done("export", t0, (
+        f"export_enhancer of the flagship Enhancer (bf16, batch 8, "
+        f"DPM++2M-5) {ex['export_s']:.2f}s, {ex['mib']:.1f} MiB; "
+        f"load_exported {ex['load_s']:.2f}s; one call launched the bf16 "
+        f"kernel 20 times; {ex['bytes_diff']} bytes off the Enhancer's on "
+        f"the same noise (max {ex['max_diff']} levels, limit "
+        f"{EXPORT_MAX_LEVELS}); call {ex['exported_call_ms']:.1f} ms "
+        f"exported, {ex['enhancer_call_ms']:.1f} ms Enhancer | {smi}"))
+
+    # ---------------------------------------------------------------- http
+    t0 = time.perf_counter()
+    hp = phase_http(att, torch, np, Enhancer, flagship_config)
+    phase_done("http", t0, (
+        f"serve_http over the flagship Enhancer (max_batch 1): POST /enhance "
+        f"256², 300×200, 256² ?size=128x96 in "
+        f"{[round(x, 1) for x in hp['latency_ms']]} ms, 20 launches each; "
+        f"/healthz, /stats ok; a bad body got {hp['bad_body_code']} | {smi}"))
 
     # ---------------------------------------------------------------- path
     t0 = time.perf_counter()
@@ -1054,8 +1506,44 @@ def main() -> None:
                         for d, r in res.items())
             + f"; attention launches {ev['launches']} (20 a batch) | {smi}"))
         print("  eval " + json.dumps(ev), flush=True)
+
+        # ------------------------------------------------------------ cfg
+        t0 = time.perf_counter()
+        cf = phase_cfg(att, torch, np, tmp)
+        phase_done("cfg", t0, (
+            f"train_cfg at CFGConfig() (batch 80, 32², ch 128, T 500, bf16), "
+            f"{len(cf['train_step_ms'])} steps in "
+            f"{[round(x, 1) for x in cf['train_step_ms']]} ms, peak "
+            f"{cf['train_peak_gib']:.2f} GiB; evaluate_cfg (w 1.8, 10 × 8 "
+            f"grid, T 500): {cf['eval_calls']} calls of 2B = {CFG_BATCH} in "
+            f"{cf['eval_s']:.2f}s, {cf['images_per_s']:.2f} img/s, peak "
+            f"{cf['eval_peak_gib']:.2f} GiB; attention launches a call by "
+            f"shape {cf['launches_per_call']} (21); card fp32 forward vs CPU "
+            f"{cf['fp32_fwd_rel']:.3e} of max|out| (limit "
+            f"{cf['fp32_fwd_bound']:.3e}) | {smi}"))
+        print("  cfg " + json.dumps(cf), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---------------------------------------------------------------- ddpm
+    t0 = time.perf_counter()
+    dd = phase_ddpm(att, torch, np)
+    phase_done("ddpm", t0, (
+        f"flagship npz, 64² batch 2, fp32, make_sampler ddpm over T "
+        f"{dd['steps']}: {dd['chain_s']:.2f}s ({dd['ms_per_step']:.2f} ms a "
+        f"step), {dd['launches']} fp32 launches, output mean "
+        f"{dd['out_mean']:.4f} std {dd['out_std']:.4f}; one step card vs "
+        f"CPU rel {dd['step_rel']:.3e} (limit {DDPM_STEP_RTOL}), ε rel "
+        f"{dd['eps_rel']:.3e} | {smi}"))
+
+    # ---------------------------------------------------------------- vgg
+    t0 = time.perf_counter()
+    vg = phase_vgg(att, torch, np)
+    phase_done("vgg", t0, (
+        f"{vg['steps']} flagship steps (256², batch 16, bf16) under "
+        f"--stage1_losses {STAGE1_LOSSES!r}, vgg16 random init: median step "
+        f"{vg['median_step_ms']:.1f} ms after the first, peak memory "
+        f"{vg['peak_gib']:.2f} GiB, 4 attention launches a step | {smi}"))
 
     # Each kernel at the shape the serve phase gave it, with its launches
     # there: bf16 in the bf16 calls, fp32 in the full-precision request.
@@ -1070,6 +1558,7 @@ def main() -> None:
         g = grad_of[row["kernel"]]
         kernels.append({
             "name": row["kernel"],
+            "shape": [row["B"], row["N"], row["h"], row["d"]],
             "route": "cuda",
             "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
             "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
@@ -1091,6 +1580,24 @@ def main() -> None:
             "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],
             "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"],
             "grad_max_abs_err": g["grad_max_abs_err"],
+        })
+    # The bf16 kernel at the four CFG shapes, with its launches there in the
+    # cfg phase's evaluate_cfg run.
+    for case in CFG_CASES:
+        row = rows[case]
+        kernels.append({
+            "name": row["kernel"],
+            "shape": [row["B"], row["N"], row["h"], row["d"]],
+            "route": "cuda",
+            "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
+            "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
+            "launches": cf["launches_by_shape"][f"N{row['N']} d{row['d']}"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

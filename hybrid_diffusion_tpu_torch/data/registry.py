@@ -263,6 +263,70 @@ def _png_bytes(rgb: np.ndarray) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def _png_decode(data: bytes) -> Optional[np.ndarray]:
+    """PNG bytes -> RGB uint8 HWC with the standard library alone, for hosts
+    without cv2, PIL or the native decoder: 8-bit grey, grey+alpha, RGB or
+    RGBA, not interlaced, all five row filters. None for anything else."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    pos, header, idat = 8, None, []
+    try:
+        while pos + 8 <= len(data):
+            (n,), tag = struct.unpack(">I", data[pos: pos + 4]), data[pos + 4: pos + 8]
+            body = data[pos + 8: pos + 8 + n]
+            pos += 12 + n
+            if tag == b"IHDR":
+                header = struct.unpack(">IIBBBBB", body)
+            elif tag == b"IDAT":
+                idat.append(body)
+            elif tag == b"IEND":
+                break
+        if header is None:
+            return None
+        w, h, depth, ctype, _, _, interlace = header
+        channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(ctype)
+        if depth != 8 or channels is None or interlace:
+            return None
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        raw = raw[: h * (w * channels + 1)].reshape(h, w * channels + 1)
+    except (struct.error, zlib.error, ValueError):
+        return None
+    out = np.zeros((h, w * channels), np.int32)
+    prev = np.zeros(w * channels, np.int32)
+    c = channels
+    for y in range(h):
+        kind, row = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if kind == 0:
+            cur = row
+        elif kind == 1:       # Sub: a running sum per channel, mod 256
+            cur = np.cumsum(row.reshape(w, c), axis=0).reshape(-1) % 256
+        elif kind == 2:       # Up
+            cur = (row + prev) % 256
+        elif kind in (3, 4):  # Average, Paeth: pixel by pixel
+            cur = row.copy()
+            for x in range(w * c):
+                a = cur[x - c] if x >= c else 0
+                b = prev[x]
+                if kind == 3:
+                    pred = (a + b) // 2
+                else:
+                    cc = prev[x - c] if x >= c else 0
+                    p = a + b - cc
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
+                cur[x] = (row[x] + pred) % 256
+        else:
+            return None
+        out[y], prev = cur, cur
+    img = out.astype(np.uint8).reshape(h, w, c)
+    if c in (1, 2):
+        img = np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
 def save_image(path: str, rgb: np.ndarray) -> None:
     """Write an RGB uint8 HWC image with cv2, else PIL, as the JAX package
     writes its outputs; without either, a `.png` path is written by

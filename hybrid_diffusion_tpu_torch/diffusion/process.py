@@ -1,10 +1,10 @@
 """Forward diffusion, x₀ reconstruction, DDIM time grid and coefficients.
 
 Counterpart of `hybrid_diffusion_tpu/diffusion/process.py`: `q_sample`,
-`predict_x0_from_eps` (the training step's), `ddim_time_grid` and
-`ddim_coefficients`. (The DDPM posterior comes with `ddpm_sample`.) The
-DDIM coefficients are float32 numpy arrays, one entry per step in sampling
-order.
+`predict_x0_from_eps` (the training step's), the ancestral step's
+`ddpm_posterior_mean` and `ddpm_sampling_variance`, `ddim_time_grid` and
+`ddim_coefficients`. The DDIM coefficients are float32 numpy arrays, one
+entry per step in sampling order.
 """
 
 from __future__ import annotations
@@ -35,6 +35,21 @@ def predict_x0_from_eps(schedule: DiffusionSchedule, x_t: torch.Tensor,
     a = _gather(schedule.sqrt_alphas_bar, t, x_t.ndim)
     b = _gather(schedule.sqrt_one_minus_alphas_bar, t, x_t.ndim)
     return (x_t - b * eps) / a
+
+
+def ddpm_posterior_mean(schedule: DiffusionSchedule, x_t: torch.Tensor,
+                        t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """µ_{t-1} = coeff1_t·x_t − coeff2_t·ε."""
+    c1 = _gather(schedule.coeff1, t, x_t.ndim)
+    c2 = _gather(schedule.coeff2, t, x_t.ndim)
+    return c1 * x_t - c2 * eps
+
+
+def ddpm_sampling_variance(schedule: DiffusionSchedule, t: torch.Tensor,
+                           ndim: int) -> torch.Tensor:
+    """The ancestral loop's variance at t, shaped (B, 1, ..., 1): the table
+    cat([posterior_var[1:2], betas[1:]]) (the posterior's at t = 0)."""
+    return _gather(schedule.sampling_var, t, ndim)
 
 
 def ddim_time_grid(T: int, ddim_steps: int) -> tuple[np.ndarray, np.ndarray]:

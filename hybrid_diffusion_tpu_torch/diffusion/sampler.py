@@ -1,8 +1,12 @@
-"""Reverse-diffusion sampling: guided ε and DDIM.
+"""Reverse-diffusion sampling: guided ε, full-T ancestral DDPM and DDIM.
 
-Counterpart of `hybrid_diffusion_tpu/diffusion/sampler.py::_guided_eps` and
-`ddim_sample`, as a Python loop over the steps. (`ddpm_sample` waits: its
-random stream cannot match JAX's.)
+Counterpart of `hybrid_diffusion_tpu/diffusion/sampler.py` (`_guided_eps`,
+`ddpm_sample`, `ddim_sample`), as Python loops over the steps.
+
+The ancestral step's noise comes from the caller's `torch.Generator`, which
+cannot give the numbers of JAX's per-step keys: for a comparison with the
+JAX sampler, `ddpm_sample` takes the whole noise sequence (`step_noise`)
+from outside instead.
 
 Denoiser contract, as in the JAX package:
     denoise_fn(x6: (B, H, W, 6) f32, t: (B,) int, context_zero=...)
@@ -15,8 +19,9 @@ float32 tensors.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .process import ddim_coefficients
@@ -48,6 +53,47 @@ def initial_noise(cond_image: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     return torch.randn(cond_image.shape, generator=generator,
                        device=cond_image.device, dtype=torch.float32)
+
+
+def ddpm_step(schedule: DiffusionSchedule, x_t: torch.Tensor, t: int,
+              eps: torch.Tensor, z: Optional[torch.Tensor]) -> torch.Tensor:
+    """One ancestral step at timestep t (one int for the whole batch):
+    µ_{t-1} + sqrt(var_t)·z, with µ and var as `ddpm_posterior_mean` and
+    `ddpm_sampling_variance` give them; at t = 0 the mean alone (z is not
+    read)."""
+    mean = float(schedule.coeff1[t]) * x_t - float(schedule.coeff2[t]) * eps
+    if t == 0:
+        return mean
+    return mean + float(np.sqrt(schedule.sampling_var[t])) * z
+
+
+@torch.no_grad()
+def ddpm_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
+                cond_image: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                guidance_scale: float = 1.0,
+                init_noise: Optional[torch.Tensor] = None,
+                step_noise: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Full-T ancestral DDPM, t = T−1 … 0. cond_image: (B, H, W, 3) in
+    [-1, 1]. Returns images in [-1, 1].
+
+    The noise of step i (timestep T−1−i) is `step_noise[i]` when given,
+    else a draw from `generator`; the last step (t = 0) adds none.
+    """
+    T = schedule.num_steps
+    B = cond_image.shape[0]
+    y = initial_noise(cond_image, generator) if init_noise is None else init_noise
+    for i, t_int in enumerate(range(T - 1, -1, -1)):
+        t = torch.full((B,), t_int, dtype=torch.long, device=cond_image.device)
+        eps = _guided_eps(denoise_fn, torch.cat([cond_image, y], dim=-1), t,
+                          guidance_scale)
+        z = None
+        if t_int > 0:
+            z = (initial_noise(y, generator) if step_noise is None
+                 else step_noise[i])
+        y = ddpm_step(schedule, y, t_int, eps, z)
+    return y.clamp(-1.0, 1.0)
 
 
 @torch.no_grad()

@@ -3,10 +3,10 @@
 
 MSE on the noise, plus image-space terms on the reconstructed x₀ (clipped
 to [−1, 1]): DINO perceptual, MS-SSIM and angular colour (both on (x+1)/2),
-Charbonnier, with the JAX package's names and default weights. With
-`aux_weights` (the step passes ᾱ_t when `aux_snr_weight` is set) each
-image-space term becomes Σwᵢlᵢ / (Σwᵢ + 1e-8) over per-example values.
-(The VGG term waits for its extractor.)
+Charbonnier and VGG perceptual, with the JAX package's names and default
+weights. With `aux_weights` (the step passes ᾱ_t when `aux_snr_weight` is
+set) each image-space term becomes Σwᵢlᵢ / (Σwᵢ + 1e-8) over per-example
+values.
 """
 
 from __future__ import annotations
@@ -39,14 +39,12 @@ def composite_enhancement_loss(
     gt: torch.Tensor,
     config: CompositeLossConfig = CompositeLossConfig(),
     dino_loss_fn: Optional[Callable] = None,
+    vgg_loss_fn: Optional[Callable] = None,
     aux_weights: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """All inputs NHWC; gt and x0_pred in [−1, 1]. Returns (loss, parts),
-    parts holding each unweighted term and the total."""
-    if config.vgg_weight:
-        raise NotImplementedError(
-            "the VGG perceptual term is not ported yet (ROADMAP.md, queue 1, "
-            "item 2)")
+    parts holding each unweighted term and the total. A perceptual term
+    whose loss function is None is left out, as in the JAX package."""
     parts: dict[str, torch.Tensor] = {}
     mse = torch.mean((noise_pred - noise) ** 2)
     parts["mse"] = mse
@@ -75,6 +73,9 @@ def composite_enhancement_loss(
     if config.charbonnier_weight:
         parts["charbonnier"] = reduce(charbonnier_loss, x0_c, gt)
         loss = loss + config.charbonnier_weight * parts["charbonnier"]
+    if config.vgg_weight and vgg_loss_fn is not None:
+        parts["vgg"] = reduce(vgg_loss_fn, x0_c, gt)
+        loss = loss + config.vgg_weight * parts["vgg"]
 
     parts["total"] = loss
     return loss, parts

@@ -1,16 +1,19 @@
-"""DINO perceptual loss: a DINOv2-style ViT-S/14 and feature matching.
+"""Perceptual losses: DINO (a DINOv2-style ViT-S/14) and the VGG, alex and
+squeeze feature taps.
 
-Counterpart of the DINO part of `hybrid_diffusion_tpu/losses/perceptual.py`
+Counterpart of `hybrid_diffusion_tpu/losses/perceptual.py`: the DINO part
 (`center_crop_to_multiple`, `ViTBlock`, `ViTSmall`, `_interpolate_pos_embed`,
-`DinoPerceptualLoss`). Module and parameter names follow the flax ones, so
+`DinoPerceptualLoss`) and the VGG part (`VGG_CFGS`, `VGG_DEFAULT_TAPS`, the
+torchvision-ordered VGG, AlexNet and SqueezeNet 1.1 feature stacks,
+`VGGPerceptualLoss`). Module and parameter names follow the flax ones, so
 that `weights.py` carries a flax parameter tree across in both directions.
-(The VGG, alex and squeeze taps are not ported yet.)
 
-Without a weights file the extractor runs with a fixed random init drawn
+Without a weights file an extractor runs with a fixed random init drawn
 from a seeded generator with flax's distributions (lecun-normal kernels,
-zero biases, LayerScale gammas 1, `cls_token` 0, `pos_embed` N(0, 0.02)); a
-flat npz of flax-named parameters (`weights_path`, or `HDT_DINO_WEIGHTS`)
-replaces it. The extractor is frozen: the loss's gradient reaches only the
+zero biases, LayerScale gammas 1, `cls_token` 0, `pos_embed` N(0, 0.02); the
+VGG BatchNorm's scale 1, bias 0, mean 0, var 1); a flat npz of flax-named
+parameters (`weights_path`, or `HDT_DINO_WEIGHTS` / `HDT_VGG_WEIGHTS`)
+replaces it. The extractors are frozen: a loss's gradient reaches only the
 prediction.
 """
 
@@ -263,3 +266,281 @@ class DinoPerceptualLoss(nn.Module):
             loss = loss + (huber.flatten(1).mean(dim=1) if per_example
                            else huber.mean())
         return loss
+
+
+# torchvision `features` stack configurations (numbers = conv out-channels,
+# "M" = 2×2 max-pool) and the default tap slots per backbone. A slot is one
+# entry of torchvision's `features` Sequential (conv, BN, ReLU and pool each
+# count one; a SqueezeNet Fire module counts one), reproduced exactly,
+# vgg11's pre-ReLU/pool taps and its out-of-range 22 included.
+VGG_CFGS: dict[str, list] = {
+    "vgg11": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
+    "vgg13": [64, 64, "M", 128, 128, "M", 256, 256, "M", 512, 512, "M",
+              512, 512, "M"],
+    "vgg16": [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+              512, 512, 512, "M", 512, 512, 512, "M"],
+    "vgg19": [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+              512, 512, 512, 512, "M", 512, 512, 512, 512, "M"],
+}
+VGG_DEFAULT_TAPS: dict[str, list[int]] = {
+    "vgg11": [3, 8, 15, 22],
+    "vgg13": [3, 8, 15, 22],
+    "vgg16": [3, 8, 15, 22],
+    "vgg19": [3, 8, 17, 26, 35],
+    "squeeze": [3, 7, 12],
+    "alex": [3, 6, 8, 10, 12],
+}
+
+
+class _FlaxConv(nn.Conv2d):
+    """flax nn.Conv with explicit symmetric padding, in `dtype`:
+    lecun-normal kernel, zero bias, NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, dtype, gen,
+                 stride: int = 1, padding: int = 0):
+        super().__init__(in_ch, out_ch, k, stride=stride, padding=padding)
+        self.dtype = dtype
+        _lecun_normal_(self.weight, in_ch * k * k, gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        stride=self.stride, padding=self.padding)
+
+
+class _Taps:
+    """Collects the outputs of the tapped slots, counting slots in order."""
+
+    def __init__(self, taps):
+        self.taps, self.idx, self.feats = set(taps), 0, []
+
+    def emit(self, y: torch.Tensor) -> torch.Tensor:
+        if self.idx in self.taps:
+            self.feats.append(y)
+        self.idx += 1
+        return y
+
+
+class _VGGFeatures(nn.Module):
+    """A torchvision-ordered VGG stack, built and run up to its last tap.
+    With `batch_norm` an eval-mode BN (frozen statistics, computed in fp32
+    as flax promotes it) sits between each conv and its ReLU."""
+
+    def __init__(self, cfg, taps, batch_norm: bool, dtype, gen):
+        super().__init__()
+        self.taps = tuple(taps)
+        self.batch_norm = batch_norm
+        max_tap = max(self.taps) if self.taps else -1
+        self.plan, idx, in_ch = [], 0, 3
+        for v in cfg:
+            if idx > max_tap:           # nothing left to tap
+                break
+            if v == "M":
+                self.plan.append("M")
+                idx += 1
+                continue
+            i = len([p for p in self.plan if p != "M"])
+            self.add_module(f"conv_{i}", _FlaxConv(in_ch, v, 3, dtype, gen,
+                                                   padding=1))
+            if batch_norm:
+                for name, init in (("scale", torch.ones), ("bias", torch.zeros),
+                                   ("mean", torch.zeros), ("var", torch.ones)):
+                    setattr(self, f"bn_{i}_{name}", nn.Parameter(init(v)))
+            self.plan.append(i)
+            idx += 3 if batch_norm else 2
+            in_ch = v
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        out = _Taps(self.taps)
+        for step in self.plan:
+            if step == "M":
+                x = out.emit(F.max_pool2d(x, 2, 2))
+                continue
+            x = out.emit(getattr(self, f"conv_{step}")(x))
+            if self.batch_norm:
+                p = {n: getattr(self, f"bn_{step}_{n}")[:, None, None]
+                     for n in ("scale", "bias", "mean", "var")}
+                x = out.emit((x.float() - p["mean"])
+                             * torch.rsqrt(p["var"] + 1e-5) * p["scale"]
+                             + p["bias"])
+            x = out.emit(F.relu(x))
+        return out.feats
+
+
+class _AlexFeatures(nn.Module):
+    """torchvision alexnet.features. Slots: 0 Conv(64,11,s4,p2) 1 ReLU
+    2 MaxPool(3,2) 3 Conv(192,5,p2) 4 ReLU 5 MaxPool 6 Conv(384,3,p1)
+    7 ReLU 8 Conv(256,3,p1) 9 ReLU 10 Conv(256,3,p1) 11 ReLU 12 MaxPool."""
+
+    CONVS = [(64, 11, 4, 2), (192, 5, 1, 2), (384, 3, 1, 1),
+             (256, 3, 1, 1), (256, 3, 1, 1)]
+    POOLS_AFTER = (0, 1, 4)
+
+    def __init__(self, taps, dtype, gen):
+        super().__init__()
+        self.taps = tuple(taps)
+        in_ch = 3
+        for i, (ch, k, s, p) in enumerate(self.CONVS):
+            self.add_module(f"conv_{i}", _FlaxConv(in_ch, ch, k, dtype, gen,
+                                                   stride=s, padding=p))
+            in_ch = ch
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        out = _Taps(self.taps)
+        for i in range(len(self.CONVS)):
+            x = out.emit(getattr(self, f"conv_{i}")(x))
+            x = out.emit(F.relu(x))
+            if i in self.POOLS_AFTER:
+                x = out.emit(F.max_pool2d(x, 3, 2))
+        return out.feats
+
+
+class _Fire(nn.Module):
+    """SqueezeNet Fire: 1×1 squeeze + ReLU, then 1×1 and 3×3 expands, each
+    + ReLU, concatenated on channels."""
+
+    def __init__(self, in_ch: int, squeeze_ch: int, expand_ch: int, dtype,
+                 gen):
+        super().__init__()
+        self.squeeze = _FlaxConv(in_ch, squeeze_ch, 1, dtype, gen)
+        self.expand1x1 = _FlaxConv(squeeze_ch, expand_ch, 1, dtype, gen)
+        self.expand3x3 = _FlaxConv(squeeze_ch, expand_ch, 3, dtype, gen,
+                                   padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = F.relu(self.squeeze(x))
+        return torch.cat([F.relu(self.expand1x1(s)),
+                          F.relu(self.expand3x3(s))], dim=1)
+
+
+def _max_pool_ceil(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
+    """MaxPool(k, s, ceil_mode=True), as the JAX package writes it: pad
+    right and bottom with −inf so that the last partial window is kept."""
+    def pad_amount(n):
+        out = -(-(n - k) // s) + 1
+        return max((out - 1) * s + k - n, 0)
+
+    ph, pw = pad_amount(x.shape[2]), pad_amount(x.shape[3])
+    if ph or pw:
+        x = F.pad(x, (0, pw, 0, ph), value=float("-inf"))
+    return F.max_pool2d(x, k, s)
+
+
+class _SqueezeFeatures(nn.Module):
+    """torchvision squeezenet1_1.features. Slots: 0 Conv(64,3,s2) 1 ReLU
+    2 MaxPool(3,2,ceil) 3-4 Fire(16,64) 5 MaxPool 6-7 Fire(32,128)
+    8 MaxPool 9-10 Fire(48,192) 11-12 Fire(64,256)."""
+
+    FIRES = [(16, 64), (16, 64), None, (32, 128), (32, 128), None,
+             (48, 192), (48, 192), (64, 256), (64, 256)]
+
+    def __init__(self, taps, dtype, gen):
+        super().__init__()
+        self.taps = tuple(taps)
+        self.conv_0 = _FlaxConv(3, 64, 3, dtype, gen, stride=2)
+        in_ch, i = 64, 0
+        for cfg in self.FIRES:
+            if cfg is not None:
+                self.add_module(f"fire_{i}", _Fire(in_ch, cfg[0], cfg[1],
+                                                   dtype, gen))
+                in_ch, i = 2 * cfg[1], i + 1
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        out = _Taps(self.taps)
+        x = out.emit(self.conv_0(x))
+        x = out.emit(F.relu(x))
+        x = out.emit(_max_pool_ceil(x))
+        i = 0
+        for cfg in self.FIRES:
+            if cfg is None:
+                x = out.emit(_max_pool_ceil(x))
+            else:
+                x = out.emit(getattr(self, f"fire_{i}")(x))
+                i += 1
+        return out.feats
+
+
+def vgg_backbones() -> list[str]:
+    """The backbones VGGPerceptualLoss takes."""
+    return (sorted(VGG_CFGS) + [k + "_bn" for k in sorted(VGG_CFGS)]
+            + ["squeeze", "alex"])
+
+
+class VGGPerceptualLoss(nn.Module):
+    """Frozen feature matching: L1 (a mean per tap) summed over the taps,
+    the target's features detached. Images in [−1, 1], NHWC, mapped to
+    [0, 1] (no ImageNet normalization, as in the JAX package).
+
+    model: vgg11/13/16/19, each with or without `_bn`, "alex" (AlexNet) or
+    "squeeze" (SqueezeNet 1.1). layer_indices: tap slots (torchvision
+    `features` indices), VGG_DEFAULT_TAPS by default.
+
+        loss_fn = VGGPerceptualLoss(seed=2, device="cuda")   # random features
+        value = loss_fn(pred, target)
+    """
+
+    def __init__(self, seed: int = 0, weights_path: Optional[str] = None,
+                 dtype=torch.float32, model: str = "vgg16",
+                 layer_indices: Optional[list[int]] = None, device="cuda"):
+        super().__init__()
+        base = model[:-3] if model.endswith("_bn") else model
+        if model not in vgg_backbones():
+            raise ValueError(f"Unsupported perceptual model {model!r}. "
+                             f"Choose from {vgg_backbones()}")
+        self.taps = tuple(layer_indices if layer_indices is not None
+                          else VGG_DEFAULT_TAPS[base])
+        gen = torch.Generator().manual_seed(seed)
+        if base in VGG_CFGS:
+            self.model = _VGGFeatures(VGG_CFGS[base], self.taps,
+                                      model.endswith("_bn"), dtype, gen)
+        elif model == "alex":
+            self.model = _AlexFeatures(self.taps, dtype, gen)
+        else:
+            self.model = _SqueezeFeatures(self.taps, dtype, gen)
+        self.name = f"VGGPerceptualLoss_{model}"
+        self.pretrained = False
+        weights_path = weights_path or os.environ.get("HDT_VGG_WEIGHTS")
+        if weights_path and os.path.exists(weights_path):
+            load_npz_strict(self.model, weights_path)
+            self.pretrained = True
+        self.requires_grad_(False)
+        self.to(device)
+
+    def features(self, images: torch.Tensor) -> list[torch.Tensor]:
+        return self.model(((images + 1.0) / 2.0).permute(0, 3, 1, 2))
+
+    def forward(self, pred: torch.Tensor, target: torch.Tensor,
+                per_example: bool = False) -> torch.Tensor:
+        """A scalar, or with `per_example` one value per image, (B,)."""
+        fp = self.features(pred)
+        with torch.no_grad():
+            ft = self.features(target)
+        loss = 0.0
+        for a, b in zip(fp, ft):
+            d = (a - b).abs()
+            loss = loss + (d.flatten(1).mean(dim=1) if per_example
+                           else d.mean())
+        return loss
+
+
+def load_npz_strict(module: nn.Module, path: str) -> None:
+    """Load a flat npz of flax-named parameters ("params/conv_0/kernel",
+    ...) into `module`, with the JAX package's `_load_npz_params`
+    strictness: an array that matches no parameter raises, and so does a
+    shape mismatch (both judged in flax's names and layouts); a parameter
+    the file lacks keeps its init."""
+    from ..utils.params_io import load_params_npz
+    from ..weights import flat_from_state_dict, state_dict_from_flat
+
+    template = flat_from_state_dict(module.state_dict())
+    flat = load_params_npz(path)
+    unused = sorted(set(flat) - set(template))
+    if unused:
+        raise ValueError(f"{path}: {len(unused)} arrays match no model "
+                         f"parameter, e.g. {unused[:5]}")
+    for key, array in flat.items():
+        if tuple(array.shape) != tuple(template[key].shape):
+            raise ValueError(f"{path}: shape mismatch at {key}: npz "
+                             f"{array.shape} vs model {template[key].shape}")
+    module.load_state_dict(state_dict_from_flat(flat), strict=False)

@@ -1,1 +1,2 @@
+from .cfg_unet import CFGUNet
 from .unet import DynamicUNet

@@ -128,30 +128,57 @@ def _bias_param(ch: int, fan_in: int) -> nn.Parameter:
 
 class DownSample(nn.Module):
     """Sum of a 3×3 and a 5×5 stride-2 SAME conv, run as one fused 5×5
-    (ops/fast_conv.py)."""
+    (ops/fast_conv.py).
 
-    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
+    torch_pad: torch's symmetric stride-2 padding instead (1 for the 3×3, 2
+    for the 5×5; XLA's SAME puts (0, 1) and (1, 2)), as two convolutions:
+    the two sample positions one pixel apart. For comparisons with the torch
+    reference; the shipped weights are SAME-trained.
+    """
+
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32,
+                 torch_pad: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.torch_pad = torch_pad
         self.k3, self.b3 = _conv_param(ch, ch, 3), _bias_param(ch, ch * 9)
         self.k5, self.b5 = _conv_param(ch, ch, 5), _bias_param(ch, ch * 25)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_dual_downsample(x.to(self.dtype), self.k3, self.b3,
-                                     self.k5, self.b5)
+        x = x.to(self.dtype)
+        if not self.torch_pad:
+            return fused_dual_downsample(x, self.k3, self.b3, self.k5, self.b5)
+        a = F.conv2d(x, self.k3.to(x.dtype), stride=2, padding=1)
+        b = F.conv2d(x, self.k5.to(x.dtype), stride=2, padding=2)
+        return a + b + (self.b3 + self.b5).to(x.dtype)[:, None, None]
 
 
 class UpSample(nn.Module):
     """ConvTranspose 5×5 stride 2 (SAME, exact 2×) in its 4-phase form, then
-    a 3×3 conv."""
+    a 3×3 conv.
 
-    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
+    torch_pad: torch's `ConvTranspose2d(5, 2, 2, output_padding=1)` instead
+    (an lhs-dilated correlation with padding (2, 3); SAME gives the same
+    values shifted one pixel). `kt` is the correlation kernel either way: the
+    transposed convolution's weight is kt flipped in space, in and out
+    swapped.
+    """
+
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32,
+                 torch_pad: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.torch_pad = torch_pad
         self.kt, self.bt = _conv_param(ch, ch, 5), _bias_param(ch, ch * 25)
         self.c = Conv(ch, ch, 3, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        x = conv_transpose_5x5_s2(x, self.kt) + self.bt.to(x.dtype)[:, None, None]
+        if self.torch_pad:
+            weight = self.kt.to(x.dtype).flip(-2, -1).transpose(0, 1)
+            x = F.conv_transpose2d(x, weight, stride=2, padding=2,
+                                   output_padding=1)
+        else:
+            x = conv_transpose_5x5_s2(x, self.kt)
+        x = x + self.bt.to(x.dtype)[:, None, None]
         return self.c(x)

@@ -1,9 +1,8 @@
 """Time and condition embeddings.
 
 Counterpart of `hybrid_diffusion_tpu/models/embeddings.py`:
-`sinusoidal_table`, `TimeEmbedding` and `ImageConditionEmbedding`.
-(`LabelEmbedding` belongs to the classifier-free-guidance subsystem, which
-is not ported yet.)
+`sinusoidal_table`, `TimeEmbedding`, `ImageConditionEmbedding` and the
+classifier-free-guidance model's `LabelEmbedding`.
 """
 
 from __future__ import annotations
@@ -61,3 +60,28 @@ class ImageConditionEmbedding(nn.Module):
         x = self.conv3(self.conv2(self.conv1(image)))
         x = x.mean(dim=(2, 3))
         return self.dense2(F.silu(self.dense1(x)))
+
+
+class LabelEmbedding(nn.Module):
+    """Integer labels -> a (num_labels + 1, d_model) table -> Dense -> SiLU
+    -> Dense. Label 0 is the null (unconditional) slot.
+
+    Row 0 is replaced by zeros at every forward, as the JAX module's
+    `table.at[0].set(0.0)` does: a table loaded with a non-zero row 0 still
+    embeds label 0 as zero, and no gradient reaches row 0.
+    (`nn.Embedding(padding_idx=0)` zeroes the row only at init.) The table
+    is N(0, 1) at init, the Dense layers torch's default.
+    """
+
+    def __init__(self, num_labels: int, d_model: int, dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.table = nn.Parameter(torch.randn(num_labels + 1, d_model))
+        self.dense1 = Dense(d_model, dim, dtype)
+        self.dense2 = Dense(dim, dim, dtype)
+        self.dtype = dtype
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        table = torch.cat([torch.zeros_like(self.table[:1]), self.table[1:]])
+        emb = table[labels.long()].to(self.dtype)
+        return self.dense2(F.silu(self.dense1(emb)))

@@ -14,6 +14,9 @@ same topology and parameter names:
 The forward takes and returns NHWC, like the JAX model; inside it is NCHW.
 `train=True` turns dropout on, its masks drawn from the caller's generator.
 Training routes the middle blocks by domain with `domain_gates_from_batch`.
+`torch_pad` gives the resampling convolutions torch's padding instead of
+XLA's SAME (blocks.py), for comparisons with the torch reference; it is off
+by default, as in the JAX model.
 
 Init follows the JAX model (`models/torch_init.py` there): torch's default
 kaiming-uniform kernels and U(±1/√fan_in) biases everywhere, except the
@@ -60,7 +63,7 @@ class DynamicUNet(nn.Module):
                  ch_mult: Sequence[int] = (1, 2, 2, 2),
                  num_res_blocks: int = 2, num_heads: int = 8,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, torch_pad: bool = False):
         super().__init__()
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -84,7 +87,8 @@ class DynamicUNet(nn.Module):
                 now_ch = out_ch
                 skip_ch.append(now_ch)
             if i != len(self.ch_mult) - 1:
-                self.add_module(f"downsample_{i}", DownSample(now_ch, dtype))
+                self.add_module(f"downsample_{i}",
+                                DownSample(now_ch, dtype, torch_pad))
                 skip_ch.append(now_ch)
 
         for m in range(NUM_MIDDLE_BLOCKS):
@@ -99,7 +103,8 @@ class DynamicUNet(nn.Module):
                                 ResBlock(in_ch, out_ch, **block))
                 now_ch = out_ch
             if i != 0:
-                self.add_module(f"upsample_{i}", UpSample(now_ch, dtype))
+                self.add_module(f"upsample_{i}",
+                                UpSample(now_ch, dtype, torch_pad))
 
         self.tail_norm = GroupNorm32(now_ch)
         self.tail_conv = Conv(now_ch, 3, 3, torch.float32)

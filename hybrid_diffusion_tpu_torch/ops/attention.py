@@ -13,6 +13,12 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     (each product as three TF32 products, fp32-accurate). There is no
     fallback from the card to the plain version or from one kernel to the
     other.
+  - `attention_fwd`, the custom op `hdt::attention_fwd` (torch.library):
+    its CUDA implementation launches the kernel, its CPU implementation is
+    the plain version, and its fake implementation gives the output's
+    shape, so that `torch.export` traces through the op (it cannot trace
+    the ctypes call) and an exported program launches the same kernel.
+    Importing this module (or the package) registers it.
   - `RecomputedBackwardAttention`: reverse mode, as the JAX package's
     `_pallas_attention_diff`: the forward is the kernel, the backward
     differentiates `attention_reference` at the saved q, k, v (there is no
@@ -174,6 +180,25 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("hdt::attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def attention_fwd(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ/√d)·v as one op: the CUDA kernel on the card (checked,
+    counted; it raises where the kernel does not take the inputs)."""
+    return _launch(q, k, v)
+
+
+@attention_fwd.register_kernel("cpu")
+def _attention_fwd_cpu(q, k, v):
+    return attention_reference(q, k, v).contiguous()
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q, k, v):
+    return q.new_empty(q.shape)
+
+
 class RecomputedBackwardAttention(torch.autograd.Function):
     """`forward_fn(q, k, v)` forward; the backward recomputes through
     `attention_reference` at the saved inputs and returns its grads (the
@@ -201,14 +226,15 @@ def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """Scaled-dot-product attention over (B, N, heads, head_dim) tensors.
 
-    CPU tensors take the plain version; CUDA tensors take a CUDA kernel,
-    inside `RecomputedBackwardAttention` when an input requires grad.
+    Without grad, the op `attention_fwd`: the CUDA kernel on the card, the
+    plain version on the CPU. With grad, CUDA tensors take the op inside
+    `RecomputedBackwardAttention`, CPU tensors autograd of the plain version.
     """
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return RecomputedBackwardAttention.apply(q, k, v, _launch)
-    return _launch(q, k, v)
+        if q.device.type == "cpu":
+            return attention_reference(q, k, v)
+        return RecomputedBackwardAttention.apply(q, k, v, attention_fwd)
+    return attention_fwd(q, k, v)

@@ -12,9 +12,10 @@ Counterpart of `hybrid_diffusion_tpu/train/loop.py`: `build_model`
     budget, the NaN guard's emergency checkpoint, the `eval_every` probe,
     periodic and stage-final checkpoints with the npz export and its
     sidecar, and SIGTERM's preempt checkpoint;
-  - evaluation: DPM++2M/DDIM sampling on the card, at most two batches in
-    flight, and PSNR/SSIM/UIQM/UCIQE/FID per domain, with the per-image
-    CPU metrics on a two-thread pool and a `res.txt` per domain.
+  - evaluation: DPM++2M, DDIM or full-T DDPM sampling on the card, at most
+    two batches in flight, and PSNR/SSIM/UIQM/UCIQE/FID per domain, with
+    the per-image CPU metrics on a two-thread pool and a `res.txt` per
+    domain.
 
 Every entry point runs on `config.device` ("cuda" by default; it raises
 without a card unless the caller asks for "cpu"). An fp32 configuration
@@ -38,8 +39,9 @@ import torch
 from ..config import Config
 from ..data import BatchLoader, make_dataset
 from ..data.pipeline import DeviceBatchLoader, device_prefetch, interleave
-from ..diffusion import ddim_sample, dpm_solver_pp_2m_sample, linear_beta_schedule
-from ..losses import DinoPerceptualLoss
+from ..diffusion import (ddim_sample, ddpm_sample, dpm_solver_pp_2m_sample,
+                         linear_beta_schedule)
+from ..losses import DinoPerceptualLoss, VGGPerceptualLoss
 from ..models import DynamicUNet
 from ..utils.device import require_single_process, resolve_device
 from ..utils.precision import precision_for
@@ -128,13 +130,17 @@ def _make_dino(config: Config, stage_cfgs, device) -> Optional[DinoPerceptualLos
     return make_dino(dataclasses.replace(config, dino_weight=1.0), device)
 
 
-def _make_vgg(config: Config, stage_cfgs) -> None:
-    """The VGG/alex/squeeze taps are not ported: a stage that weights them
-    raises, as the port's composite loss does."""
-    if any(c.vgg_weight for c in stage_cfgs):
-        raise NotImplementedError(
-            "the VGG perceptual term (vgg_weight > 0) is not ported yet "
-            "(ROADMAP.md, queue 1, item 2)")
+def _make_vgg(config: Config, stage_cfgs,
+              device) -> Optional[VGGPerceptualLoss]:
+    """One `config.vgg_model` extractor shared by every stage whose loss
+    uses it (random init from seed 2, or HDT_VGG_WEIGHTS), computing in
+    bf16 when `config.bf16`."""
+    if not any(c.vgg_weight for c in stage_cfgs):
+        return None
+    return VGGPerceptualLoss(
+        seed=2, model=config.vgg_model,
+        dtype=torch.bfloat16 if config.bf16 else torch.float32,
+        device=resolve_device(device))
 
 
 def _dataset_name(config: Config, domain: str) -> str:
@@ -258,7 +264,7 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
             ("Underwater", "underwater", config.epochs_stage_2),
         ]
     stage_cfgs = [config.stage_loss_config(i) for i in range(len(stages))]
-    _make_vgg(config, stage_cfgs)
+    vgg = _make_vgg(config, stage_cfgs, device)
     dino = _make_dino(config, stage_cfgs, device)
     step_cache: dict = {}
 
@@ -269,7 +275,8 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                 dino_loss_fn=dino if loss_cfg.dino_weight else None,
                 use_conditioning=config.use_conditioning,
                 p_uncond=config.p_uncond,
-                domain_routing=config.domain_routing)
+                domain_routing=config.domain_routing,
+                vgg_loss_fn=vgg if loss_cfg.vgg_weight else None)
         return step_cache[loss_cfg]
 
     generator = torch.Generator(device).manual_seed(config.seed)
@@ -617,9 +624,9 @@ def make_sampler(config: Config, model: DynamicUNet,
                                   guidance_scale=guidance,
                                   init_noise=init_noise)
             else:
-                raise NotImplementedError(
-                    "ddpm_sample is not ported yet (ROADMAP.md, queue 1, "
-                    "item 3.1)")
+                out = ddpm_sample(denoise, schedule, cond, generator,
+                                  guidance_scale=guidance,
+                                  init_noise=init_noise)
             out01 = (out + 1.0) / 2.0
             if quantize_uint8:
                 return (out01 * 255.0).clamp(0, 255).to(torch.uint8)

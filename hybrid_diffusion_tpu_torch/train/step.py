@@ -104,6 +104,7 @@ def diffusion_train_step(
     domain_routing: bool = True,
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    vgg_loss_fn: Optional[Callable] = None,
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One optimization step, in place on `state`.
 
@@ -146,7 +147,8 @@ def diffusion_train_step(
         x0_pred = predict_x0_from_eps(schedule, y_t, t, noise_pred)
         loss, parts = composite_enhancement_loss(
             noise_pred, noise, x0_pred, gt, loss_config,
-            dino_loss_fn=dino_loss_fn, aux_weights=aux_w)
+            dino_loss_fn=dino_loss_fn, vgg_loss_fn=vgg_loss_fn,
+            aux_weights=aux_w)
     with record_function("train/backward"):
         loss.backward()
 
@@ -198,6 +200,7 @@ def make_train_step(
     use_conditioning: bool = False,
     p_uncond: float = 0.02,
     domain_routing: bool = True,
+    vgg_loss_fn: Optional[Callable] = None,
 ) -> Callable:
     """step(state, batch, generator, t=None, noise=None) -> (state,
     metrics), closed over the static configuration. The schedule's tables
@@ -217,6 +220,7 @@ def make_train_step(
         with precision_for(state.model.dtype != torch.float32):
             return diffusion_train_step(
                 state, batch, generator, tables, loss_config, dino_loss_fn,
-                use_conditioning, p_uncond, domain_routing, t=t, noise=noise)
+                use_conditioning, p_uncond, domain_routing, t=t, noise=noise,
+                vgg_loss_fn=vgg_loss_fn)
 
     return step

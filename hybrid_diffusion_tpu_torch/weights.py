@@ -11,8 +11,10 @@ The port names its modules after the flax ones, so a flax path maps onto a
     and `out` (h, d, D) become (D, D) weights, their (h, d) biases (D,);
   - a GroupNorm or LayerNorm `scale` becomes `weight`; every `bias` stays
     `bias`;
-  - `time_embedding/table`, the ViT's `cls_token`, `pos_embed` and
-    LayerScale `gamma_1`, `gamma_2` are parameters and keep their names.
+  - `time_embedding/table` and the CFG model's `cond_embedding/table`, the
+    ViT's `cls_token`, `pos_embed` and LayerScale `gamma_1`, `gamma_2`, and
+    the VGG towers' BatchNorm arrays (`bn_{i}_scale`, `_bias`, `_mean`,
+    `_var`, all flax params) are parameters and keep their names.
 
 Stored fp16 becomes fp32 master weights. `inception_state_dict_from_flat`
 also carries the JAX FID's Inception variables, BatchNorm statistics
@@ -24,6 +26,7 @@ its `save_params_npz` does (fp16 by default).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -35,6 +38,11 @@ _CONV_KERNELS = ("k3", "k5", "kt")
 _KEPT = ("bias", "scale", "table", "b3", "b5", "bt", "gamma_1", "gamma_2",
          "cls_token", "pos_embed")
 _DENSE_GENERAL_IN = ("query", "key", "value")
+_VGG_BN = re.compile(r"bn_\d+_(scale|bias|mean|var)")
+
+
+def _kept(leaf: str) -> bool:
+    return leaf in _KEPT or _VGG_BN.fullmatch(leaf) is not None
 
 
 def _convert(path: str, array: np.ndarray) -> tuple[str, np.ndarray]:
@@ -53,7 +61,7 @@ def _convert(path: str, array: np.ndarray) -> tuple[str, np.ndarray]:
         array = array.reshape(-1, array.shape[-1]).T  # (h, d, D) -> (D, h·d)
     elif leaf == "bias" and array.ndim == 2 and parent in _DENSE_GENERAL_IN:
         array = array.reshape(-1)                    # (h, d) -> (h·d,)
-    elif leaf not in _KEPT:
+    elif not _kept(leaf):
         raise KeyError(f"no mapping for parameter {path!r} of shape "
                        f"{array.shape}")
     if leaf in ("kernel", "scale"):
@@ -102,7 +110,7 @@ def flat_from_state_dict(state: Mapping[str, torch.Tensor],
             leaf, array = "kernel", array.T
         elif leaf == "bias" and parent in _DENSE_GENERAL_IN:
             array = array.reshape(num_heads, -1)
-        elif leaf not in _KEPT:
+        elif not _kept(leaf):
             raise KeyError(f"no mapping for state_dict key {key!r} of shape "
                            f"{array.shape}")
         flat["/".join(["params", *parts[:-1], leaf])] = np.ascontiguousarray(array)
