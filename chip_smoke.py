@@ -102,7 +102,26 @@ From a clean checkout, with no arguments, it:
   14. vgg   VGG_STEPS flagship-width bf16 steps (batch 16) under the
             run-book's stage-1 loss set (vgg 1, charbonnier 1, the rest 0)
             with vgg16 at random init: 4 launches a step, finite losses;
-            prints the step time and peak memory.
+            prints the step time and peak memory;
+  15. parallel  in spawned processes (this one holds no process group):
+            one rank over NCCL on cuda:0 runs cli train --zero1 at the
+            flagship width for 2 steps with a save, resumes from it with
+            --mesh_data 1 --mesh_model 1 for 2 more, and evaluate()s its
+            final checkpoint; it also runs ring attention at world 1 against the
+            plain version and one NCCL send/recv to itself. Then two gloo
+            ranks share cuda:0: a DDP step (mesh 2×1, global batch 16 at
+            256², bf16, the default loss with DINO and MS-SSIM, dropout 0),
+            a TP step (mesh 1×2, batch 8: the kernel on 4 heads) and a
+            ZeRO-1 step, each held against one process on the same batch,
+            t and noise (loss and gradient norm within PAR_BF16_RTOL), the
+            three again in fp32 at 64² (loss within TRAIN_LOSS_RTOL, the
+            first update's gradients within max(TRAIN_GRAD_FLOOR, 10 κ)),
+            and the batch-sharded sampler (DPM++2M-5, 8 images, fp32 at
+            64²) against one process (±1 level on at most
+            PAR_SAMPLE_MAX_SHARE of the bytes). Prints each rank's step
+            times, peak memory and launches by shape, the collectives that
+            gloo refuses on CUDA tensors and where they are checked
+            instead. Two ranks sharing one card are no scaling figure.
 
 The kernel phase also holds the attention's forward and gradients (the
 kernel's forward inside the autograd Function, the backward recomputed
@@ -122,7 +141,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -169,6 +190,9 @@ SERVE_CASE = (8, 1024, 8, 32, "bfloat16", "randn")
 FP32_SERVE_CASE = (8, 1024, 8, 32, "float32", "randn")
 PATH_CASE = (2, 64, 8, 32, "float32", "randn")
 TRAIN_CASE = (16, 1024, 8, 32, "bfloat16", "randn")
+# The parallel phase's head-sharded attention: the TP step (mesh 1×2, batch
+# 8) runs the bf16 kernel on each rank's 4 of the 8 heads.
+TP_CASE = (8, 1024, 4, 32, "bfloat16", "randn")
 # The loop phase's probe (probe_case) gives the bf16 kernel its most
 # frequent shape there: the first val batch of the synthetic corpus, fewer
 # images than a train batch. phase_kernel holds it against the plain version
@@ -182,6 +206,7 @@ KERNEL_CASES = [
     PATH_CASE,
     FP32_SERVE_CASE,
     TRAIN_CASE,
+    TP_CASE,
     (8, 1024, 8, 16, "bfloat16", "randn"),
     (8, 1024, 8, 64, "bfloat16", "randn"),
     (8, 1000, 8, 32, "bfloat16", "randn"),  # ragged N
@@ -1232,6 +1257,417 @@ def phase_vgg(att, torch, np) -> dict:
                 losses=losses)
 
 
+# ---------------------------------------------------------------- parallel
+# The parallel phase runs in spawned processes: the smoke's own process
+# holds no process group. The card's machine has one H100, and NCCL refuses
+# two ranks on one device, so the phase takes two parts: one rank over
+# NCCL (the backend of multi-GPU runs) through train() and evaluate(), and
+# two ranks over gloo on cuda:0 for the DDP, TP and ZeRO-1 steps and the
+# sharded sampler, each held against one process. Two ranks sharing one
+# card say nothing about scaling: their times are printed, not compared.
+#
+# Gloo's point-to-point send/recv does not take CUDA tensors (a probe on the
+# H100 got "writev ... Bad address"); ring attention's K/V rotation is made
+# of them. So the ring runs on the card at world 1 over NCCL (its math, and
+# one send/recv of NCCL's to itself), and at world 2 and 4 only on the CPU
+# (tests/test_torch_ring_attention.py). Every other collective of the
+# parallel layer (all_reduce, broadcast, barrier, DDP's) runs here on CUDA.
+GLOO_REFUSED_ON_CUDA = ("batch_isend_irecv (ring attention's K/V rotation)",)
+PAR_TIMEOUT_S = 110.0
+# The gloo ranks' steps and the cases they hold against one process.
+PAR_BATCH = 16            # DDP and ZeRO-1: global batch, 8 a rank
+PAR_TP_BATCH = 8          # TP: each rank holds the whole batch
+PAR_FP32_SIZE, PAR_FP32_BATCH = 64, 4
+# bf16: two ranks' batches of 8 run other cuDNN algorithms and sum the loss
+# and the gradients in another order than one batch of 16; bf16 keeps 8
+# bits, so each such difference is a few units of 2^-9 in the terms. The
+# bound on the loss and the gradient norm, relative: 2^-7.
+PAR_BF16_RTOL = 2.0 ** -7
+# The sharded sampler (DPM++2M-5, 8 images, fp32, 64²) against one process:
+# its rows run at batch 4 instead of 8, other cuDNN algorithms summing in
+# another order; a uint8 value may cross a quantization step. At most one
+# level, on at most PAR_SAMPLE_MAX_SHARE of the bytes.
+PAR_SAMPLE_MAX_SHARE = 1e-3
+PAR_SAMPLER_IMAGES = 8
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_child(fn, rank, workdir, *args) -> None:
+    """A spawned child: fn(rank, workdir, *args) -> dict, written as JSON;
+    a traceback file and a non-zero exit on failure."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        out = fn(rank, workdir, *args)
+    except BaseException:
+        Path(workdir, f"error.{rank}.txt").write_text(traceback.format_exc())
+        raise
+    Path(workdir, f"result.{rank}.json").write_text(json.dumps(out))
+
+
+def _par_spawn(fn, world: int, workdir: Path, *args) -> list:
+    """Run fn on `world` spawned processes; fails the run when one exits
+    non-zero or outlives PAR_TIMEOUT_S; returns their results."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_par_child,
+                         args=(fn, r, str(workdir)) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 0.1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        errors = "".join(
+            f"\n--- rank {r}:\n" + (workdir / f"error.{r}.txt").read_text()
+            for r in range(world) if (workdir / f"error.{r}.txt").exists())
+        fail(f"parallel phase: {fn.__name__} ranks exited with {codes}"
+             + (" (timed out)" if hung else "") + errors)
+    return [json.loads((workdir / f"result.{r}.json").read_text())
+            for r in range(world)]
+
+
+def _par_world1(rank, workdir, argv, steps):
+    """World 1 over NCCL on cuda:0: cli train with --zero1 for `steps`
+    steps, a resume from its checkpoint with --mesh_data 1 --mesh_model 1,
+    evaluate() of the resumed run's final checkpoint; ring attention and
+    one NCCL send/recv at world 1. Returns the run's record."""
+    import os
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    import torch
+    import torch.distributed as dist
+
+    from hybrid_diffusion_tpu_torch import cli
+    from hybrid_diffusion_tpu_torch.config import parse_config
+    from hybrid_diffusion_tpu_torch.ops import attention as att
+    from hybrid_diffusion_tpu_torch.ops import ring_attention as ring
+    from hybrid_diffusion_tpu_torch.parallel import make_mesh
+    from hybrid_diffusion_tpu_torch.train import loop
+    from hybrid_diffusion_tpu_torch.train.checkpoint import load_metadata
+
+    set_tf32(torch, (False, False))
+    tmp = Path(workdir)
+    t0 = time.perf_counter()
+    att.reset_launch_count()
+    if cli.main(argv + ["--zero1"]) != 0:
+        raise RuntimeError("cli train --zero1 returned non-zero")
+    train_s = time.perf_counter() - t0
+    launches = att.launch_counts["attention_fwd"]
+    if not dist.is_initialized() or "nccl" not in str(dist.get_backend()):
+        raise RuntimeError("train() ran without an NCCL process group")
+    ckpts = sorted((tmp / "ck").iterdir())
+    periodic = [p for p in ckpts if "_final_" not in p.name]
+    if len(periodic) != 1 or load_metadata(periodic[0])["step"] != steps:
+        raise RuntimeError(f"checkpoints {[p.name for p in ckpts]}")
+    # Resume from the periodic checkpoint (written by the ZeRO-1 run) with
+    # the plain 1×1 mesh, two more steps.
+    resume = parse_config(argv + ["--mesh_data", "1", "--mesh_model", "1",
+                                  "--epochs_stage_1", "2", "--resume_from",
+                                  str(periodic[0])])
+    summary = loop.train(resume, max_steps=steps + 2)
+    state = summary["state"]
+    if state.step != steps + 2 or summary["steps"] != steps + 2:
+        raise RuntimeError(f"the resume ran to step {state.step}, expected "
+                           f"{steps + 2}")
+    test = parse_config([a if a != "train" else "test" for a in argv]
+                        + ["--pretrained_path",
+                           summary["stages"][-1]["checkpoint"]])
+    t1 = time.perf_counter()
+    results = loop.evaluate(test, compute_fid=False, save_images=False)
+    eval_s = time.perf_counter() - t1
+    for domain, res in results.items():
+        if not (res["n_images"] > 0 and all(
+                math.isfinite(res[k]) for k in ("psnr", "ssim", "uiqm"))):
+            raise RuntimeError(f"evaluate() {domain}: {res}")
+    # Ring attention at world 1 on the card (forward and gradients against
+    # the plain version), and its rotation's send/recv over NCCL to itself.
+    mesh = make_mesh(1, 1)
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn(2, 1024, 8, 32, device="cuda", generator=g)
+               .requires_grad_() for _ in range(3))
+    out = ring.ring_spatial_attention(q, k, v, mesh)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    ref = att.attention_reference(q, k, v)
+    ref_grads = torch.autograd.grad(ref.sum(), (q, k, v))
+    ring_err = max(float((a - b).detach().abs().max())
+                   for a, b in zip((out,) + grads, (ref,) + ref_grads))
+    if ring_err > 1e-4:
+        raise RuntimeError(f"ring attention at world 1 differs by {ring_err}")
+    sent = torch.arange(8.0, device="cuda")
+    (got,), reqs = ring._rotate([sent], dist.group.WORLD)
+    ring._wait(reqs)
+    if not torch.equal(got, sent):
+        raise RuntimeError("NCCL send/recv to self lost the tensor")
+    dist.destroy_process_group()
+    return dict(train_s=train_s, launches=launches, eval_s=eval_s,
+                resumed_to=state.step, ring_err=ring_err,
+                results={d: {k: r[k] for k in ("psnr", "ssim", "n_images")}
+                         for d, r in results.items()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _par_rank(rank, workdir):
+    """One of two gloo ranks on cuda:0: DDP (2×1), TP (1×2) and ZeRO-1
+    (2×1) steps at the flagship width in bf16 and again in fp32 at 64²,
+    and the sharded sampler; rank 0 also runs each against one process."""
+    import collections
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from hybrid_diffusion_tpu_torch.config import flagship_config
+    from hybrid_diffusion_tpu_torch.diffusion import linear_beta_schedule
+    from hybrid_diffusion_tpu_torch.ops import attention as att
+    from hybrid_diffusion_tpu_torch.parallel import (
+        make_mesh, shard_batch, shard_params, shard_state)
+    from hybrid_diffusion_tpu_torch.parallel.sharding import (
+        full_state_payload)
+    from hybrid_diffusion_tpu_torch.profile_train import synthetic_batches
+    from hybrid_diffusion_tpu_torch.train.loop import (
+        create_train_state, init_params, make_dino, make_sampler)
+    from hybrid_diffusion_tpu_torch.train.step import make_train_step
+
+    set_tf32(torch, (False, False))
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/pg",
+                            rank=rank, world_size=2)
+    meshes = {"2x1": make_mesh(2, 1), "1x2": make_mesh(1, 2)}
+    main = rank == 0
+    by_shape = collections.Counter()
+    real_launch = att._launch
+
+    def counted(q, k, v):
+        out = real_launch(q, k, v)
+        by_shape[f"B{q.shape[0]} N{q.shape[1]} h{q.shape[2]} d{q.shape[3]}"] += 1
+        return out
+
+    def run(cfg, mesh, zero1, batch, t, noise, steps=1, grads=False,
+            nudge=None):
+        """steps of the step on `mesh` (None: one process) from the npz's
+        weights (each moved by one ulp, ×(1 ± 2⁻²³), signs from the numpy
+        generator `nudge`); the first step's metrics, each step's ms, and
+        (grads) the first update's whole gradients, AdamW's first moment
+        over 0.1, flattened in name order."""
+        model = init_params(cfg, "cuda")
+        if nudge is not None:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(torch.from_numpy(1 + 2.0 ** -23 * nudge.choice(
+                        [-1.0, 1.0], tuple(p.shape))).float().cuda())
+        if mesh is not None:
+            shard_params(mesh, model)
+        state = create_train_state(cfg, model, steps_per_epoch=100)
+        if mesh is not None:
+            shard_state(mesh, state, zero1=zero1)
+        step = make_train_step(
+            linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T),
+            cfg.loss_config, dino_loss_fn=make_dino(cfg, "cuda"),
+            domain_routing=True, mesh=mesh)
+        local = (batch if mesh is None else shard_batch(mesh, batch))
+        gen = torch.Generator("cuda").manual_seed(cfg.seed)
+        first, ms = None, []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, local, gen, t=t, noise=noise)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = {k: float(v) for k, v in metrics.items()}
+                if grads:
+                    if mesh is None:
+                        mu = {n: state.moments(n)["exp_avg"]
+                              for n in state.params}
+                    else:
+                        payload = full_state_payload(state)
+                        names = list(state.params)
+                        mu = {names[i]: s["exp_avg"] for i, s in
+                              payload["optimizer"]["state"].items()}
+                    first["grad"] = torch.cat([
+                        (mu[n].double() / 0.1).flatten().cpu()
+                        for n in sorted(mu)])
+        del state, step
+        torch.cuda.empty_cache()
+        return first, ms
+
+    flag = flagship_config(init_from_npz=str(FLAGSHIP_NPZ), dropout=0.0,
+                           lr=1e-5)
+    rng = np.random.default_rng(11)
+    bf16 = {}
+    for case, mesh_name, zero1, B in (("ddp", "2x1", False, PAR_BATCH),
+                                      ("tp", "1x2", False, PAR_TP_BATCH),
+                                      ("zero1", "2x1", True, PAR_BATCH)):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 synthetic_batches(1, B, flag.img_size, seed=5)[0].items()}
+        t = torch.from_numpy(rng.integers(0, flag.T, (B,))).cuda()
+        noise = torch.from_numpy(rng.standard_normal(
+            (B, flag.img_size, flag.img_size, 3)).astype(np.float32)).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        by_shape.clear()
+        att._launch = counted
+        att.reset_launch_count()
+        got, ms = run(flag, meshes[mesh_name], zero1, batch, t, noise,
+                      steps=2)
+        att._launch = real_launch
+        rec = dict(metrics=got, step_ms=ms, launches=dict(by_shape),
+                   launch_count=att.launch_counts["attention_fwd"],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        dist.barrier()
+        if main:      # one process on the same global batch, t and noise
+            want, _ = run(flag, None, False, batch, t, noise)
+            rec["one_process"] = want
+            rec["loss_rel"] = abs(got["total"] - want["total"]) / abs(
+                want["total"])
+            rec["grad_norm_rel"] = abs(got["grad_norm"] - want["grad_norm"]
+                                       ) / want["grad_norm"]
+        dist.barrier()
+        bf16[case] = rec
+
+    # fp32 at 64²: each case's first update against one process, and κ,
+    # one process's own change when every weight moves by one ulp.
+    cfg64 = flagship_config(init_from_npz=str(FLAGSHIP_NPZ), dropout=0.0,
+                            lr=1e-5, img_size=PAR_FP32_SIZE, bf16=False)
+    B = PAR_FP32_BATCH
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batches(
+        1, B, PAR_FP32_SIZE, seed=6)[0].items()}
+    t = torch.from_numpy(rng.integers(0, cfg64.T, (B,))).cuda()
+    noise = torch.from_numpy(rng.standard_normal(
+        (B, PAR_FP32_SIZE, PAR_FP32_SIZE, 3)).astype(np.float32)).cuda()
+    fp32 = {}
+    for case, mesh_name, zero1 in (("ddp", "2x1", False), ("tp", "1x2", False),
+                                   ("zero1", "2x1", True)):
+        got, _ = run(cfg64, meshes[mesh_name], zero1, batch, t, noise,
+                     grads=True)
+        fp32[case] = got
+    fp32_rec = {}
+    if main:
+        want, _ = run(cfg64, None, False, batch, t, noise, grads=True)
+        ulp, _ = run(cfg64, None, False, batch, t, noise, grads=True,
+                     nudge=np.random.default_rng(12))
+        g0 = want["grad"]
+        kappa = float((ulp["grad"] - g0).norm() / g0.norm())
+        for case, got in fp32.items():
+            fp32_rec[case] = dict(
+                loss_rel=abs(got["total"] - want["total"]) / abs(
+                    want["total"]),
+                grad_rel=float((got["grad"] - g0).norm() / g0.norm()))
+        fp32_rec["kappa"] = kappa
+        fp32_rec["grad_bound"] = max(TRAIN_GRAD_FLOOR, 10 * kappa)
+    dist.barrier()
+
+    # The sharded sampler: DPM++2M-5, 8 images, fp32 at 64², 2×1.
+    cfg_s = flagship_config(img_size=PAR_FP32_SIZE, bf16=False, dropout=0.0,
+                            init_from_npz=str(FLAGSHIP_NPZ))
+    model = init_params(cfg_s, "cuda").eval()
+    cond = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (PAR_SAMPLER_IMAGES, PAR_FP32_SIZE, PAR_FP32_SIZE, 3),
+        dtype=np.uint8)).cuda()
+    sharded = make_sampler(cfg_s, model, quantize_uint8=True,
+                           mesh=meshes["2x1"])(
+        cond, torch.Generator("cuda").manual_seed(3)).cpu().numpy()
+    sample_rec = {}
+    if main:
+        one = make_sampler(cfg_s, model, quantize_uint8=True)(
+            cond, torch.Generator("cuda").manual_seed(3)).cpu().numpy()
+        diff = np.abs(sharded.astype(int) - one.astype(int))
+        sample_rec = dict(max_levels=int(diff.max()),
+                          share=float((diff > 0).mean()),
+                          shape=list(sharded.shape))
+    dist.barrier()
+    dist.destroy_process_group()
+    return dict(bf16=bf16, fp32=fp32_rec, sampler=sample_rec,
+                step_ms_median={c: statistics.median(r["step_ms"][1:])
+                                for c, r in bf16.items()})
+
+
+def phase_parallel(torch, np, tmp: Path) -> dict:
+    """The parallel layer on the card (see the comment above
+    GLOO_REFUSED_ON_CUDA); fails the run on any disagreement."""
+    from hybrid_diffusion_tpu_torch.data.datasets import make_dataset
+
+    length = 32
+    argv = ["--state", "train", "--device", "cuda", "--synthetic_data",
+            "--synthetic_length", str(length), "--img_size", "256",
+            "--batch_size", str(PAR_BATCH), "--bf16", "--lr", "1e-5",
+            "--init_from_npz", str(FLAGSHIP_NPZ), "--epochs_stage_1", "1",
+            "--epochs_stage_2", "0", "--save_checkpoint", "1",
+            "--sampler", "dpm++2m", "--ddim_step", "5", "--ema_decay", "0.99",
+            "--checkpoint_dir", str(tmp / "w1" / "ck"),
+            "--output_path", str(tmp / "w1" / "out")]
+    steps = len(make_dataset("synthetic-underwater", "train",
+                             synthetic_length=length)) // PAR_BATCH
+    (tmp / "w1").mkdir()
+    (tmp / "gloo").mkdir()
+    t0 = time.perf_counter()
+    w1 = _par_spawn(_par_world1, 1, tmp / "w1", argv, steps)[0]
+    w1["seconds"] = time.perf_counter() - t0
+    if w1["launches"] != 4 * steps:
+        fail(f"world-1 NCCL train launched the kernel {w1['launches']} "
+             f"times in {steps} steps, expected 4 a step")
+    t0 = time.perf_counter()
+    ranks = _par_spawn(_par_rank, 2, tmp / "gloo")
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    for case, rec in r0["bf16"].items():
+        if not (rec["loss_rel"] <= PAR_BF16_RTOL
+                and rec["grad_norm_rel"] <= PAR_BF16_RTOL):
+            fail(f"{case} bf16 step: loss rel {rec['loss_rel']}, grad norm "
+                 f"rel {rec['grad_norm_rel']} against one process, bound "
+                 f"{PAR_BF16_RTOL}")
+    for case in ("ddp", "tp", "zero1"):
+        rec = r0["fp32"][case]
+        if not (rec["loss_rel"] <= TRAIN_LOSS_RTOL
+                and rec["grad_rel"] <= r0["fp32"]["grad_bound"]):
+            fail(f"{case} fp32 step at 64²: loss rel {rec['loss_rel']} "
+                 f"(bound {TRAIN_LOSS_RTOL}), gradients rel "
+                 f"{rec['grad_rel']} (bound {r0['fp32']['grad_bound']})")
+    for rank in ranks:
+        for case, rec in rank["bf16"].items():
+            if rec["launch_count"] != sum(rec["launches"].values()):
+                fail(f"{case}: the wrapper counted {rec['launch_count']} "
+                     f"launches, the shapes {rec['launches']}")
+    tp_shape = f"B{PAR_TP_BATCH} N1024 h4 d32"
+    tp_launches = sum(r["bf16"]["tp"]["launches"].get(tp_shape, 0)
+                      for r in ranks)
+    # Two steps on each rank, 4 middle blocks: 8 launches a rank on 4 heads.
+    if tp_launches != 2 * 2 * 4 or any(
+            set(r["bf16"]["tp"]["launches"]) != {tp_shape} for r in ranks):
+        fail(f"the TP steps launched {[r['bf16']['tp']['launches'] for r in ranks]}"
+             f", expected the kernel on 4 heads ({tp_shape}) 8 times a rank")
+    ddp_shape = f"B{PAR_BATCH // 2} N1024 h8 d32"
+    for case in ("ddp", "zero1"):
+        if any(r["bf16"][case]["launches"] != {ddp_shape: 8} for r in ranks):
+            fail(f"the {case} steps launched "
+                 f"{[r['bf16'][case]['launches'] for r in ranks]}, expected "
+                 f"{{{ddp_shape!r}: 8}} a rank")
+    sm = r0["sampler"]
+    if sm["shape"] != [PAR_SAMPLER_IMAGES, PAR_FP32_SIZE, PAR_FP32_SIZE, 3] \
+            or sm["max_levels"] > 1 or sm["share"] > PAR_SAMPLE_MAX_SHARE:
+        fail(f"the sharded sampler against one process: {sm}")
+    return dict(world1=w1, ranks=ranks, gloo_seconds=seconds,
+                tp_launches=tp_launches, tp_shape=tp_shape)
+
+
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
     return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
@@ -1465,8 +1901,6 @@ def main() -> None:
         f"{tp['tf32_grad_rel']:.3e}"))
 
     # ---------------------------------------------------------------- loop
-    import shutil
-    import tempfile
 
     tmp = Path(tempfile.mkdtemp(prefix="hdt_chip_smoke_"))
     try:
@@ -1545,6 +1979,53 @@ def main() -> None:
         f"{vg['median_step_ms']:.1f} ms after the first, peak memory "
         f"{vg['peak_gib']:.2f} GiB, 4 attention launches a step | {smi}"))
 
+    # ---------------------------------------------------------------- parallel
+    # The spawned ranks need the card's memory this process still caches.
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="hdt_chip_parallel_"))
+    try:
+        t0 = time.perf_counter()
+        par = phase_parallel(torch, np, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    w1, r0 = par["world1"], par["ranks"][0]
+    tp_row = rows[TP_CASE]
+    for r, rank in enumerate(par["ranks"]):
+        print("  parallel rank " + str(r) + " " + json.dumps({
+            case: dict(step_ms=rec["step_ms"], peak_gib=rec["peak_gib"],
+                       launches=rec["launches"])
+            for case, rec in rank["bf16"].items()}) + f" | {smi}", flush=True)
+    print("  parallel " + json.dumps(dict(
+        world1=w1, bf16={c: {k: v for k, v in rec.items()
+                             if k in ("loss_rel", "grad_norm_rel")}
+                         for c, rec in r0["bf16"].items()},
+        fp32=r0["fp32"], sampler=r0["sampler"],
+        gloo_refuses_on_cuda=list(GLOO_REFUSED_ON_CUDA))), flush=True)
+    phase_done("parallel", t0, (
+        f"world 1 over NCCL: cli train --zero1 {w1['launches'] // 4} steps "
+        f"+ resume with --mesh_data 1 --mesh_model 1 to step "
+        f"{w1['resumed_to']} + evaluate() in {w1['seconds']:.1f}s, ring "
+        f"attention at world 1 within {w1['ring_err']:.1e}; two gloo ranks "
+        f"on cuda:0 in {par['gloo_seconds']:.1f}s: step ms a rank (median of "
+        f"the second) " + ", ".join(
+            f"{c} {m:.1f}" for c, m in r0["step_ms_median"].items())
+        + "; bf16 vs one process (loss, grad norm rel, bound "
+        f"{PAR_BF16_RTOL:.2e}) " + ", ".join(
+            f"{c} {rec['loss_rel']:.1e}/{rec['grad_norm_rel']:.1e}"
+            for c, rec in r0["bf16"].items())
+        + f"; fp32 64² gradients rel " + ", ".join(
+            f"{c} {r0['fp32'][c]['grad_rel']:.1e}"
+            for c in ("ddp", "tp", "zero1"))
+        + f" (bound {r0['fp32']['grad_bound']:.1e}, κ "
+        f"{r0['fp32']['kappa']:.1e}); sampler {r0['sampler']['max_levels']} "
+        f"level(s) on {r0['sampler']['share']:.2e} of the bytes; "
+        f"head-sharded kernel {par['tp_shape']}: {par['tp_launches']} "
+        f"launches, {tp_row['kernel_ms']:.5f} ms (SDPA "
+        f"{tp_row['library_ms']:.5f} ms); gloo refuses on CUDA: "
+        f"{', '.join(GLOO_REFUSED_ON_CUDA)} (checked at world 1 on the card "
+        f"and at world 2-4 on the CPU); two ranks on one card are no scaling "
+        f"figure | {smi}"))
+
     # Each kernel at the shape the serve phase gave it, with its launches
     # there: bf16 in the bf16 calls, fp32 in the full-precision request.
     # The bf16 kernel also carries its launches in the train phase and its
@@ -1599,6 +2080,22 @@ def main() -> None:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # The bf16 kernel on the head-sharded shape, with its launches in the
+    # parallel phase's TP steps (both ranks).
+    kernels.append({
+        "name": tp_row["kernel"],
+        "shape": [tp_row["B"], tp_row["N"], tp_row["h"], tp_row["d"]],
+        "route": "cuda",
+        "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
+        "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
+        "launches": par["tp_launches"],
+        "max_abs_err": tp_row["max_abs_err"],
+        "ms": tp_row["kernel_ms"],
+        "plain_ms": tp_row["plain_ms"],
+        "bound_ms": tp_row["bound_ms"],
+        "bound_by": tp_row["bound_by"],
+        "library_ms": tp_row["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,14 +6,14 @@ State names mean what they say: `eval` evaluates the val split, `test` the
 test split, and `inference` is an alias for `test`.
 
 The port adds one field, `device` ("cuda" unless the caller asks for
-"cpu"). Fields that only the TPU package acts on:
+"cpu"; under torchrun each rank takes cuda:LOCAL_RANK). `use_pallas_attention`
+and `compilation_cache` have no effect: the port's attention on the card is
+always its CUDA kernel, and it compiles no XLA programs to cache.
 
-  - `use_pallas_attention` and `compilation_cache` have no effect: the
-    port's attention on the card is always its CUDA kernel, and it compiles
-    no XLA programs to cache;
-  - `mesh_data` or `mesh_model` beyond 1, and `zero1`, raise
-    NotImplementedError: the port runs on one card (ROADMAP.md, queue 1,
-    item 7).
+`mesh_data`, `mesh_model` and `zero1` shape the ("data", "model") mesh of a
+run under several ranks (parallel/): mesh_data None means the world size
+over mesh_model, as in JAX; a mesh that does not match the world raises
+ValueError when the run starts.
 """
 
 from __future__ import annotations
@@ -98,9 +98,9 @@ class Config:
     bf16: bool = True
     use_pallas_attention: bool = False        # no effect in the port
     remat: bool = False                       # recompute ResBlocks
-    mesh_data: Optional[int] = None           # >1 raises: one card
-    mesh_model: int = 1                       # >1 raises: one card
-    zero1: bool = False                       # raises: one card
+    mesh_data: Optional[int] = None           # None: world / mesh_model
+    mesh_model: int = 1                       # head-sharded attention
+    zero1: bool = False                       # moments + EMA over "data"
     async_checkpoint: bool = False            # periodic saves in background
     epoch: int = 2000                         # eval-time checkpoint selector
     seed: int = 0
@@ -108,13 +108,6 @@ class Config:
     device_data: bool = False                 # train corpus on the card
     compilation_cache: str = ".jax_cache"     # no effect in the port
     device: str = "cuda"                      # "cpu" only when asked for
-
-    def __post_init__(self):
-        if (self.mesh_data or 1) > 1 or self.mesh_model > 1 or self.zero1:
-            raise NotImplementedError(
-                "mesh_data/mesh_model beyond 1 and zero1 need the parallel "
-                "slice, which the port does not have yet (ROADMAP.md, queue "
-                "1, item 7)")
 
     def pprint(self) -> None:
         print("\nFinal configuration:")

@@ -6,12 +6,18 @@ Counterpart of `hybrid_diffusion_tpu/data/pipeline.py` (:25-282):
     card computes; batches are uint8 NHWC numpy (1 byte a pixel on the
     wire); `RandomState(seed + epoch)` shuffles as the JAX loader does, so
     both packages give the same batches in the same order;
-  - `shard_for_host`: the contiguous per-rank slice of the index space
-    (rank and world size from `torch.distributed` when it is initialized;
-    the port's loops run in one process, so nothing calls it yet);
+  - `shard_for_host`: the contiguous per-rank slice of an index array
+    (rank and world size from `torch.distributed` when it is initialized).
+    `BatchLoader(shard_hosts=...)` applies it to each global batch, so a
+    rank decodes only its rows and the ranks' rows, concatenated, are the
+    one-process batch. (JAX's loader slices the epoch's index space per
+    host instead, which gives other global batches than one process; the
+    port keeps the one-process order so that W ranks train on its
+    batches.);
   - `DeviceBatchLoader`: the whole corpus on the card as uint8 tensors,
     each batch gathered there by an index tensor (the epoch's shuffled
-    indices are copied to the card once an epoch, not once a step);
+    indices are copied to the card once an epoch, not once a step); one
+    process only, as in JAX;
   - `device_prefetch`: pinned host buffers copied `non_blocking` on a side
     CUDA stream, `depth` batches ahead, each with an event that the compute
     stream waits on before it reads the batch;
@@ -64,7 +70,11 @@ class BatchLoader:
     """Iterates dict batches {input: (B,H,W,3) u8, gt: ..., name: list}.
 
     drop_last=False keeps a ragged final batch, as the JAX loop asks for on
-    one device.
+    one device. shard_hosts: False; True for this rank's rows of every
+    batch of `batch_size` (torch.distributed's rank and world size); or
+    (index, count) for rank `index` of `count` (the mesh's data coordinate,
+    which model-parallel ranks share). A sharded loader drops a ragged
+    final batch: it cannot split over the ranks.
     """
 
     def __init__(
@@ -76,6 +86,7 @@ class BatchLoader:
         num_workers: int = 4,
         prefetch: int = 2,
         drop_last: bool = True,
+        shard_hosts=False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -83,7 +94,17 @@ class BatchLoader:
         self.seed = seed
         self.num_workers = max(num_workers, 1)
         self.prefetch = prefetch
-        self.drop_last = drop_last
+        self.shard = None
+        if shard_hosts is True:
+            dist = torch.distributed
+            if dist.is_available() and dist.is_initialized():
+                self.shard = (dist.get_rank(), dist.get_world_size())
+        elif shard_hosts:
+            self.shard = tuple(shard_hosts)
+        if self.shard is not None and batch_size % self.shard[1]:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{self.shard[1]} ranks")
+        self.drop_last = drop_last or self.shard is not None
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -137,8 +158,10 @@ class BatchLoader:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for b in range(nb):
                         lo = b * self.batch_size
-                        if not put(self._assemble(pool,
-                                                  idx[lo : lo + self.batch_size])):
+                        rows = idx[lo : lo + self.batch_size]
+                        if self.shard is not None:
+                            rows = shard_for_host(rows, *self.shard)
+                        if not put(self._assemble(pool, rows)):
                             return
             except Exception as e:  # handed to the consumer, raised there
                 put(e)
@@ -167,7 +190,9 @@ class DeviceBatchLoader:
     (a 44-pair 256² corpus is 17 MB); every batch is then gathered there
     with `index_select` by an index tensor. Batch composition is identical
     to `BatchLoader`'s for the same (seed, epoch, batch_size, drop_last).
-    One process, as in the JAX package.
+    One process, as in the JAX package: it raises under a process group of
+    several ranks (each would hold the whole corpus; use BatchLoader with
+    shard_hosts).
     """
 
     device_resident = True
@@ -182,6 +207,12 @@ class DeviceBatchLoader:
         drop_last: bool = True,
         keys: tuple = ("input", "gt"),
     ):
+        dist = torch.distributed
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise NotImplementedError(
+                "DeviceBatchLoader is single-process; use BatchLoader with "
+                "shard_hosts for multi-process input")
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.shuffle = shuffle

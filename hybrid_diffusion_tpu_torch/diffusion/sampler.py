@@ -49,8 +49,26 @@ def _guided_eps(denoise_fn: DenoiseFn, x6: torch.Tensor, t: torch.Tensor,
     return eps_u + guidance_scale * (eps_c - eps_u)
 
 
+class RowNoise:
+    """A generator's normal draws for a global batch of `batch` rows, of
+    which this rank keeps `rows` (the sharded sampler's: every rank draws
+    what one process draws and keeps its part)."""
+
+    def __init__(self, generator: Optional[torch.Generator], batch: int,
+                 rows: slice):
+        self.generator, self.batch, self.rows = generator, batch, rows
+
+    def randn(self, shape: tuple, device) -> torch.Tensor:
+        full = torch.randn((self.batch,) + tuple(shape[1:]),
+                           generator=self.generator, device=device,
+                           dtype=torch.float32)
+        return full[self.rows]
+
+
 def initial_noise(cond_image: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    if isinstance(generator, RowNoise):
+        return generator.randn(tuple(cond_image.shape), cond_image.device)
     return torch.randn(cond_image.shape, generator=generator,
                        device=cond_image.device, dtype=torch.float32)
 

@@ -7,6 +7,13 @@ Charbonnier and VGG perceptual, with the JAX package's names and default
 weights. With `aux_weights` (the step passes ᾱ_t when `aux_snr_weight` is
 set) each image-space term becomes Σwᵢlᵢ / (Σwᵢ + 1e-8) over per-example
 values.
+
+With a process `group` (the mesh's "data" group) the loss is the global
+batch's: Σwᵢlᵢ and Σwᵢ are summed over the group (the numerator through
+`group_sum`, whose backward sums the gradient too), MS-SSIM takes its
+per-scale means over the group, and the plain means (MSE, colour, DINO,
+Charbonnier, VGG) stay per rank: equal per-rank batches average to the
+global mean under the data-parallel gradient average.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.collectives import all_reduce_, group_sum
 from .charbonnier import charbonnier_loss
 from .color import angular_color_loss
 from .ms_ssim import ms_ssim_loss
@@ -41,6 +49,7 @@ def composite_enhancement_loss(
     dino_loss_fn: Optional[Callable] = None,
     vgg_loss_fn: Optional[Callable] = None,
     aux_weights: Optional[torch.Tensor] = None,
+    group=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """All inputs NHWC; gt and x0_pred in [−1, 1]. Returns (loss, parts),
     parts holding each unweighted term and the total. A perceptual term
@@ -52,9 +61,11 @@ def composite_enhancement_loss(
 
     if aux_weights is not None:
         w = aux_weights.float()
+        w_sum = all_reduce_(w.sum(), group)
 
         def reduce(fn, a, b):
-            return torch.sum(w * fn(a, b, per_example=True)) / (w.sum() + 1e-8)
+            return (group_sum(torch.sum(w * fn(a, b, per_example=True)),
+                              group) / (w_sum + 1e-8))
     else:
         def reduce(fn, a, b):
             return fn(a, b)
@@ -64,7 +75,10 @@ def composite_enhancement_loss(
         parts["dino"] = reduce(dino_loss_fn, x0_c, gt)
         loss = loss + config.dino_weight * parts["dino"]
     if config.ms_ssim_weight:
-        parts["ms_ssim"] = reduce(ms_ssim_loss, (x0_c + 1) / 2, (gt + 1) / 2)
+        a, b = (x0_c + 1) / 2, (gt + 1) / 2
+        parts["ms_ssim"] = (ms_ssim_loss(a, b, group=group)
+                            if aux_weights is None
+                            else reduce(ms_ssim_loss, a, b))
         loss = loss + config.ms_ssim_weight * parts["ms_ssim"]
     if config.color_weight:
         parts["color"] = reduce(angular_color_loss, (x0_c + 1) / 2,

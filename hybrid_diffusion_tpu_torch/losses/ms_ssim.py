@@ -6,7 +6,10 @@ between scales, contrast-structure terms at the coarse scales and
 luminance·contrast-structure at the last. The number of scales adapts to
 the image: scale k needs min(H, W) / 2^k ≥ 11, and a smaller image uses a
 renormalized prefix of the weights (256²: all 5 scales; 32²: 2).
-Inputs are NHWC, as in the JAX package.
+Inputs are NHWC, as in the JAX package. With a process `group` (the mesh's
+"data" group) each scale's batch mean is taken over the group's global
+batch (parallel/collectives.py::group_sum), as the JAX function's mean over
+a sharded batch is.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import group_sum, size
 
 MS_SSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -50,17 +55,21 @@ def _ssim_components(x, y, data_range, window_size, sigma, k1, k2):
     return lum * cs, cs
 
 
-def _mean(m: torch.Tensor, per_example: bool) -> torch.Tensor:
-    return m.flatten(1).mean(dim=1) if per_example else m.mean()
+def _mean(m: torch.Tensor, per_example: bool, group=None) -> torch.Tensor:
+    if per_example:
+        return m.flatten(1).mean(dim=1)
+    if group is None:
+        return m.mean()
+    return group_sum(m.sum(), group) / (m.numel() * size(group))
 
 
 def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
             window_size: int = 11, sigma: float = 1.5,
-            weights=MS_SSIM_WEIGHTS, per_example: bool = False
-            ) -> torch.Tensor:
+            weights=MS_SSIM_WEIGHTS, per_example: bool = False,
+            group=None) -> torch.Tensor:
     """MS-SSIM of NHWC images: a scalar over the batch (each scale's mean
-    taken over the whole batch, as the JAX function), or with `per_example`
-    one value per image, (B,)."""
+    taken over the whole batch, as the JAX function; over the global batch
+    of `group`), or with `per_example` one value per image, (B,)."""
     H, W = x.shape[1], x.shape[2]
     usable = 1
     while usable < len(weights) and min(H, W) // (2 ** usable) >= window_size:
@@ -75,9 +84,9 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
         s, cs = _ssim_components(x, y, data_range, window_size, sigma,
                                  0.01, 0.03)
         if i == levels - 1:
-            vals.append(_mean(s, per_example))
+            vals.append(_mean(s, per_example, group))
         else:
-            vals.append(_mean(cs, per_example))
+            vals.append(_mean(cs, per_example, group))
             x, y = F.avg_pool2d(x, 2), F.avg_pool2d(y, 2)
     # Clamped: a tiny negative under a fractional power is NaN.
     out = 1.0
@@ -87,8 +96,8 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
 
 
 def ms_ssim_loss(pred: torch.Tensor, target: torch.Tensor,
-                 data_range: float = 1.0, per_example: bool = False
-                 ) -> torch.Tensor:
+                 data_range: float = 1.0, per_example: bool = False,
+                 group=None) -> torch.Tensor:
     """1 − MS-SSIM."""
     return 1.0 - ms_ssim(pred, target, data_range=data_range,
-                         per_example=per_example)
+                         per_example=per_example, group=group)

@@ -8,7 +8,7 @@ boundary). Module and parameter names follow the flax ones, so that
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_spatial_attention
+from ..parallel.collectives import copy_to_model, reduce_from_model
 from ..ops.fast_conv import conv_transpose_5x5_s2, fused_dual_downsample
 from .layers import Conv, Dense, GroupNorm32
 
@@ -24,7 +25,25 @@ class SpatialSelfAttention(nn.Module):
     """Multi-head self-attention over the H·W tokens: a packed q|k|v
     projection, scaled dot-product attention per head, an output
     projection. Init as the JAX block's (torch.nn.MultiheadAttention's):
-    in_proj xavier-uniform, out_proj torch's default kernel, zero biases."""
+    in_proj xavier-uniform, out_proj torch's default kernel, zero biases.
+
+    `attention_fn(q, k, v)` replaces the core (q, k, v) -> out computation
+    when set, as the JAX block's field does (e.g.
+    `ops.make_ring_attention(mesh)` for token-sharded attention).
+
+    `shard_heads(rank, size, group)` makes the block head-sharded (tensor
+    parallelism over the mesh's "model" axis): this rank keeps heads
+    [rank·h/size, (rank+1)·h/size), that is rows [q_m; k_m; v_m] of the
+    packed (3C, C) in_proj and the matching columns of out_proj, runs the
+    attention on its h/size heads, and all-reduces the out-projection's
+    partial sums over `group` before adding the out bias once (Megatron's
+    f and g conjugates, parallel/collectives.py). Each rank's partial
+    product takes the compute dtype's operands and is computed, summed over
+    the ranks and biased in fp32, then rounded once, as one process's GEMM
+    accumulates in fp32 and rounds once (a bf16 partial rounded on each
+    rank moved a flagship step's gradient norm by 5.7e-3 from one
+    process's in chip_smoke.py's parallel phase; 2.0e-6 since).
+    """
 
     def __init__(self, channels: int, num_heads: int = 8,
                  dtype: torch.dtype = torch.float32):
@@ -33,21 +52,53 @@ class SpatialSelfAttention(nn.Module):
             raise ValueError(f"{channels} channels do not split into "
                              f"{num_heads} heads")
         self.num_heads = num_heads
+        self.head_dim = channels // num_heads
         self.in_proj = Dense(channels, 3 * channels, dtype)
         self.out_proj = Dense(channels, channels, dtype)
         nn.init.xavier_uniform_(self.in_proj.weight)
         nn.init.zeros_(self.in_proj.bias)
         nn.init.zeros_(self.out_proj.bias)
+        self.attention_fn: Optional[Callable] = None
+        self.local_heads = num_heads
+        self.model_group = None
+
+    @torch.no_grad()
+    def shard_heads(self, rank: int, size: int, group) -> None:
+        """Keep this rank's heads of the (full) projections, in place."""
+        from ..parallel.sharding import HEAD_SHARDS, shard_tensor
+
+        if self.local_heads != self.num_heads:
+            raise RuntimeError("the attention block is sharded already")
+        if self.num_heads % size:
+            raise ValueError(f"{self.num_heads} heads do not split over "
+                             f"{size} ranks")
+        for name, spec in HEAD_SHARDS.items():
+            layer, leaf = name.split(".")
+            mod = getattr(self, layer)
+            setattr(mod, leaf, nn.Parameter(
+                shard_tensor(getattr(mod, leaf).detach(), spec, rank, size)))
+        self.local_heads = self.num_heads // size
+        self.model_group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
-        N, heads = H * W, self.num_heads
+        N, heads = H * W, self.local_heads
         tokens = x.flatten(2).transpose(1, 2)                # (B, N, C)
-        qkv = self.in_proj(tokens)                           # (B, N, 3C)
+        if self.model_group is not None:
+            tokens = copy_to_model(tokens, self.model_group)
+        qkv = self.in_proj(tokens)                           # (B, N, 3C')
         # Strided views, no copies: the kernel reads (B, N, h, d) by strides.
-        q, k, v = qkv.view(B, N, 3, heads, C // heads).unbind(2)
-        out = fused_spatial_attention(q, k, v)               # (B, N, h, d)
-        out = self.out_proj(out.reshape(B, N, C))
+        q, k, v = qkv.view(B, N, 3, heads, self.head_dim).unbind(2)
+        attend = self.attention_fn or fused_spatial_attention
+        out = attend(q, k, v).reshape(B, N, heads * self.head_dim)
+        if self.model_group is None:
+            out = self.out_proj(out)
+        else:
+            dt = self.out_proj.dtype
+            partial = F.linear(out.to(dt).float(),
+                               self.out_proj.weight.to(dt).float())
+            out = (reduce_from_model(partial, self.model_group)
+                   + self.out_proj.bias.to(dt).float()).to(dt)
         return out.transpose(1, 2).reshape(B, C, H, W)
 
 

@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import nearest_resize
+from ..parallel.collectives import all_reduce_, size
 from .blocks import DownSample, ResBlock, UpSample
 from .embeddings import ImageConditionEmbedding, TimeEmbedding
 from .layers import Conv, GroupNorm32
@@ -40,16 +41,23 @@ from .layers import Conv, GroupNorm32
 NUM_MIDDLE_BLOCKS = 4
 
 
-def domain_gates_from_batch(cond_image: torch.Tensor) -> torch.Tensor:
+def domain_gates_from_batch(cond_image: torch.Tensor,
+                            group=None) -> torch.Tensor:
     """Per-middle-block gradient gates from the batch's colour: float32 (4,)
     of 0/1, gate i == 1 when middle block i trains on this batch.
 
     cond_image: (B, H, W, 3) RGB, any range. The batch is underwater when
     its mean blue exceeds its mean red: then the even blocks train, else the
-    odd ones.
+    odd ones. With a process `group` (the mesh's "data" group) the means
+    are the global batch's, so every rank gates the same blocks.
     """
-    red = cond_image[..., 0].mean()
-    blue = cond_image[..., 2].mean()
+    if group is None:
+        red = cond_image[..., 0].mean()
+        blue = cond_image[..., 2].mean()
+    else:
+        sums = torch.stack([cond_image[..., 0].sum(), cond_image[..., 2].sum()])
+        red, blue = (all_reduce_(sums, group)
+                     / (cond_image[..., 0].numel() * size(group))).unbind()
     is_underwater = (blue > red).float()
     even = (torch.arange(NUM_MIDDLE_BLOCKS, device=cond_image.device) % 2
             == 0).float()

@@ -47,7 +47,11 @@ class Enhancer:
     """Warm single-shape enhancement service over npz weights."""
 
     def __init__(self, config: Config, npz_path, max_batch: int = 8,
-                 warmup: bool = True, device="cuda"):
+                 warmup: bool = True, device="cuda", mesh=None):
+        """`mesh` (a parallel.make_mesh DeviceMesh; every rank constructs
+        the Enhancer and calls it alike) shards each padded batch over its
+        "data" axis, as the JAX Enhancer's does: max_batch must divide over
+        it, and every rank returns the whole batch."""
         self.device = resolve_device(device)
         self.config = config
         self.max_batch = max_batch
@@ -55,7 +59,8 @@ class Enhancer:
         model = build_model(config)
         model.load_state_dict(load_npz_state_dict(npz_path), strict=True)
         self._model = model.to(self.device).eval()
-        self._sample = make_sampler(config, self._model, quantize_uint8=True)
+        self._sample = make_sampler(config, self._model, quantize_uint8=True,
+                                    mesh=mesh)
         self._generator = torch.Generator(self.device).manual_seed(config.seed)
         self.device_calls = 0
         if warmup:

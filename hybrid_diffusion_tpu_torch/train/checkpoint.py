@@ -25,6 +25,14 @@ between the two packages.
 
 With `block=False` a save returns once the tensors are copied off the card;
 a background thread writes them. `wait_for_checkpoints()` joins it.
+
+On a mesh (a train state that `parallel.shard_state` placed) every rank
+calls `save_checkpoint`: the head-sharded and ZeRO-1-partitioned state is
+gathered to full tensors (parallel/sharding.py::full_state_payload), rank 0
+writes it, as the JAX package's process 0 does (:78), and a barrier holds
+the others until the file is there. So a checkpoint is the same file at
+every world size. `restore_state` loads the full file on every rank (the
+ranks share a file system) and cuts it down to the rank's pieces.
 """
 
 from __future__ import annotations
@@ -37,6 +45,10 @@ import threading
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.distributed import rank as process_rank
+from ..parallel.sharding import full_state_payload, localize_state_payload
 
 STATE_FILE = "state.pt"
 META_FILE = "hdt_metadata.json"
@@ -72,17 +84,21 @@ def _to_host(obj: Any) -> Any:
 
 
 def state_payload(state, generator: Optional[torch.Generator] = None) -> dict:
-    """The train state (and the loop's generator) as host tensors."""
-    payload = {
-        "params": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "step": state.step,
-        "mini_step": state.mini_step,
-    }
-    if state.acc_grads is not None:
-        payload["acc_grads"] = state.acc_grads
-    if state.ema_params is not None:
-        payload["ema_params"] = state.ema_params
+    """The train state (and the loop's generator) as host tensors; on a
+    mesh the full state (a collective)."""
+    if getattr(state, "mesh", None) is not None:
+        payload = full_state_payload(state)
+    else:
+        payload = {
+            "params": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+            "mini_step": state.mini_step,
+        }
+        if state.acc_grads is not None:
+            payload["acc_grads"] = state.acc_grads
+        if state.ema_params is not None:
+            payload["ema_params"] = state.ema_params
     if generator is not None:
         payload["generator"] = generator.get_state()
     return _to_host(payload)
@@ -128,12 +144,16 @@ def save_checkpoint(
 
     block=False returns as soon as the tensors are on the host and lets
     the disk write overlap the following steps; call
-    `wait_for_checkpoints()` before relying on the files."""
+    `wait_for_checkpoints()` before relying on the files. On a mesh every
+    rank calls it; rank 0 writes."""
     wait_for_checkpoints()  # one save in flight at a time
     path = _unique_path(os.path.abspath(
         os.path.join(directory, checkpoint_name(epoch, stage, datasets))))
-    os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = state_payload(state, generator)
+    if getattr(state, "mesh", None) is not None and process_rank() != 0:
+        dist.barrier()           # rank 0 writes
+        return path
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     has_ema = state.ema_params is not None
     meta = dict(metadata or {})
     meta["has_ema"] = has_ema
@@ -142,6 +162,8 @@ def save_checkpoint(
         meta.setdefault("ema_decay", float(state.ema_decay))
     if block:
         _write(path, payload, meta)
+        if getattr(state, "mesh", None) is not None:
+            dist.barrier()
         return path
 
     def run():
@@ -152,6 +174,8 @@ def save_checkpoint(
 
     _ASYNC["thread"] = threading.Thread(target=run, daemon=False)
     _ASYNC["thread"].start()
+    if getattr(state, "mesh", None) is not None:
+        dist.barrier()           # the write goes on in rank 0's background
     return path
 
 
@@ -258,7 +282,8 @@ def restore_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
         model.load_state_dict(load_npz_state_dict(path), strict=True)
         return model
     subtree, reason = choose_restore_subtree(path)
-    print(f"[restore_params] using {subtree}: {reason}")
+    if process_rank() == 0:
+        print(f"[restore_params] using {subtree}: {reason}")
     saved = restore_partial(path, (subtree, "params"))
     sd = dict(saved["params"])
     if subtree == "ema_params":
@@ -272,8 +297,13 @@ def restore_state(path: str, state: Any,
                   generator: Optional[torch.Generator] = None) -> Any:
     """Restore the full train state in place (resume mid-schedule): the
     parameters, AdamW's moments and count, the update step, the running
-    mean under grad_accum, the EMA when both keep one, and `generator`."""
+    mean under grad_accum, the EMA when both keep one, and `generator`.
+    On a mesh each rank keeps its pieces of the full file, and a barrier
+    ends the restore."""
     payload = _load_payload(path)
+    on_mesh = getattr(state, "mesh", None) is not None
+    if on_mesh:
+        payload = localize_state_payload(state, payload)
     state.model.load_state_dict(payload["params"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
@@ -286,6 +316,8 @@ def restore_state(path: str, state: Any,
             e.copy_(payload["ema_params"][name])
     if generator is not None and "generator" in payload:
         generator.set_state(payload["generator"])
+    if on_mesh:
+        dist.barrier()
     return state
 
 

@@ -20,6 +20,20 @@ Counterpart of `hybrid_diffusion_tpu/train/loop.py`: `build_model`
 Every entry point runs on `config.device` ("cuda" by default; it raises
 without a card unless the caller asks for "cpu"). An fp32 configuration
 (`bf16=False`) runs its device work with TF32 off (utils/precision.py).
+
+Several ranks (torchrun, one process a card; JAX :167-168, :258-266,
+:464-508, :723-777, :826-845): `train` and `evaluate` start the process
+group (parallel.maybe_initialize) and build the ("data", "model") mesh
+from `mesh_data` × `mesh_model`. Training head-shards the attention over
+"model", wraps the model in DistributedDataParallel over "data", shards
+each global batch's rows over "data" (a ragged final batch is dropped),
+computes the loss over the global batch and, with `zero1`, partitions
+AdamW's moments and the EMA over "data". Evaluation shards each (padded)
+batch over "data". Rank 0 prints, logs, writes checkpoints, exports and
+metrics; every other decision is taken on values equal on every rank (the
+NaN guard reads the loss averaged over "data", SIGTERM's flag is reduced
+over the world at each epoch's end), so that no rank waits alone in a
+collective.
 """
 
 from __future__ import annotations
@@ -43,7 +57,12 @@ from ..diffusion import (ddim_sample, ddpm_sample, dpm_solver_pp_2m_sample,
                          linear_beta_schedule)
 from ..losses import DinoPerceptualLoss, VGGPerceptualLoss
 from ..models import DynamicUNet
-from ..utils.device import require_single_process, resolve_device
+from ..parallel import distributed as pdist
+from ..parallel.mesh import axis_rank, axis_size, make_mesh, mesh_shape
+from ..parallel.sharding import (gather_named, gather_params, localize_named,
+                                 make_sharded_sampler, shard_params,
+                                 shard_state)
+from ..utils.device import resolve_device
 from ..utils.precision import precision_for
 from ..utils.profiling import profile_trace, timed_block
 from ..weights import load_npz_state_dict
@@ -92,7 +111,8 @@ def init_params(config: Config, device="cuda") -> DynamicUNet:
         path = find_checkpoint(config.checkpoint_dir, config.epoch)
     if path:
         restore_params(path, model)
-        print(f"[params] restored from {path}")
+        if pdist.rank() == 0:
+            print(f"[params] restored from {path}")
     elif config.init_from_npz:
         model.load_state_dict(load_npz_state_dict(config.init_from_npz),
                               strict=True)
@@ -150,21 +170,56 @@ def _dataset_name(config: Config, domain: str) -> str:
             else config.atmospheric_data_name)
 
 
-def _loader(config: Config, domain: str, task: str, shuffle: bool):
-    """The split's loader; a ragged final batch is kept (one card)."""
+def _loader(config: Config, domain: str, task: str, shuffle: bool,
+            mesh=None):
+    """The split's loader. Given the `mesh` of several ranks it yields this
+    rank's rows of every global batch (its "data" coordinate) and drops a
+    ragged final batch; else whole batches, a ragged final one kept. The corpus lives on the card
+    (`device_data`) in a one-process run only, as in JAX."""
     ds = make_dataset(
         _dataset_name(config, domain), task=task,
         dataset_path=config.dataset_path, image_size=config.img_size,
         supervised=config.supervised,
         synthetic_length=config.synthetic_length,
     )
-    if config.device_data and task == "train":
+    if config.device_data and task == "train" and pdist.world_size() == 1:
         return DeviceBatchLoader(ds, config.batch_size, config.device,
                                  shuffle=shuffle, seed=config.seed,
                                  drop_last=False)
+    shard = ((axis_rank(mesh, "data"), axis_size(mesh, "data"))
+             if mesh is not None and pdist.world_size() > 1 else False)
     return BatchLoader(ds, config.batch_size, shuffle=shuffle,
                        seed=config.seed, num_workers=config.num_workers,
-                       drop_last=False)
+                       drop_last=bool(shard), shard_hosts=shard)
+
+
+def _start_ranks(config: Config):
+    """(device, mesh) of this rank: the process group started when the
+    environment asks for several ranks (parallel.maybe_initialize), and
+    the ("data", "model") mesh over it; (resolved device, None) in one
+    process. A mesh that does not fit the world raises ValueError."""
+    if not pdist.maybe_initialize(device=None if config.device == "cpu"
+                                  else pdist.rank_device(config.device)):
+        mesh_shape(1, config.mesh_data, config.mesh_model)
+        return resolve_device(config.device), None
+    device = resolve_device(pdist.rank_device(config.device))
+    mesh = make_mesh(config.mesh_data, config.mesh_model,
+                     device_type=device.type)
+    return device, mesh
+
+
+def _quiet(*args, **kwargs) -> None:
+    """print's stand-in on every rank but 0."""
+
+
+def _on_any_rank(flag: bool, device) -> bool:
+    """Whether `flag` is set on any rank (a collective over the world when
+    it has several ranks)."""
+    if pdist.world_size() == 1:
+        return flag
+    t = torch.tensor(float(flag), device=device)
+    torch.distributed.all_reduce(t)
+    return bool(t > 0)
 
 
 def _warm_start_meta(path: str) -> dict:
@@ -216,8 +271,13 @@ def train(config: Config, max_steps: Optional[int] = None) -> dict:
 
 
 def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
-    require_single_process()
-    device = resolve_device(config.device)
+    device, mesh = _start_ranks(config)
+    main = pdist.rank() == 0
+    say = print if main else _quiet
+    if axis_size(mesh, "data") > 1 and config.batch_size % axis_size(
+            mesh, "data"):
+        raise ValueError(f"batch_size {config.batch_size} does not split "
+                         f"over {axis_size(mesh, 'data')} data ranks")
     # Resolve the resume target before the warm start: on the first segment
     # of a `--resume_from auto` run there is no checkpoint yet, and a
     # configured --init_from_npz wins instead of raising.
@@ -231,8 +291,8 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                     raise FileNotFoundError(
                         f"--resume_from auto: no ckpt_* directories under "
                         f"{config.checkpoint_dir}")
-                print("[train] --resume_from auto: no checkpoint yet — "
-                      "falling back to the --init_from_npz warm-start")
+                say("[train] --resume_from auto: no checkpoint yet — "
+                    "falling back to the --init_from_npz warm-start")
     model = init_params(dataclasses.replace(config, init_from_npz=""), device)
     warm_meta = None
     if config.init_from_npz and resume_path is None:
@@ -242,17 +302,19 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                               strict=True)
         warm_meta = _warm_start_meta(config.init_from_npz)
         src_step = warm_meta["src_step"]
-        print(f"[train] warm-start params from {config.init_from_npz}"
-              + (f" (exported at step {src_step})"
-                 if src_step is not None else ""))
+        say(f"[train] warm-start params from {config.init_from_npz}"
+            + (f" (exported at step {src_step})"
+               if src_step is not None else ""))
         if config.lr >= type(config).lr:
-            print(f"[train] WARNING: warm-starting trained weights with "
-                  f"lr={config.lr:g} (>= the from-scratch default "
-                  f"{type(config).lr:g}) and a full warmup-cosine — this "
-                  f"can degrade the shipped weights; fine-tunes usually "
-                  f"want --lr 1e-5.")
+            say(f"[train] WARNING: warm-starting trained weights with "
+                f"lr={config.lr:g} (>= the from-scratch default "
+                f"{type(config).lr:g}) and a full warmup-cosine — this "
+                f"can degrade the shipped weights; fine-tunes usually "
+                f"want --lr 1e-5.")
+    if mesh is not None:
+        shard_params(mesh, model)
     schedule = linear_beta_schedule(config.beta_1, config.beta_T, config.T)
-    logger = MetricsLogger(config.wandb, project=config.wandb_name,
+    logger = MetricsLogger(config.wandb and main, project=config.wandb_name,
                            config=config.__dict__)
 
     datasets_tag = f"{config.underwater_data_name}{config.atmospheric_data_name}"
@@ -276,7 +338,8 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                 use_conditioning=config.use_conditioning,
                 p_uncond=config.p_uncond,
                 domain_routing=config.domain_routing,
-                vgg_loss_fn=vgg if loss_cfg.vgg_weight else None)
+                vgg_loss_fn=vgg if loss_cfg.vgg_weight else None,
+                mesh=mesh)
         return step_cache[loss_cfg]
 
     generator = torch.Generator(device).manual_seed(config.seed)
@@ -322,12 +385,17 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
         subtree, reason = choose_subtree_from_evidence(
             has_ema, step, state.ema_decay, probe_state.get("last"))
         use_ema = subtree == "ema_params"
+        # The full tensors (collectives over the mesh, on every rank).
+        weights = (gather_named(mesh, state.param_specs,
+                                state.gathered_ema()) if use_ema
+                   else gather_params(mesh, state.model))
+        if not main:
+            return
         out = os.path.abspath(config.export_npz)
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
         t0 = time.time()
         tmp = f"{out}.tmp.{os.getpid()}.npz"
-        save_npz_state_dict(tmp, state.ema_params if use_ema
-                            else state.model.state_dict())
+        save_npz_state_dict(tmp, weights)
         side_tmp = f"{out}.json.tmp.{os.getpid()}"
         with open(side_tmp, "w") as f:
             json.dump({"step": step,
@@ -341,8 +409,8 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                        "run_id": run_id}, f)
         os.replace(tmp, out)
         os.replace(side_tmp, out + ".json")
-        print(f"[export] {out}: subtree={'ema' if use_ema else 'raw'} "
-              f"step={step} ({time.time() - t0:.1f}s)")
+        say(f"[export] {out}: subtree={'ema' if use_ema else 'raw'} "
+            f"step={step} ({time.time() - t0:.1f}s)")
 
     def run_eval_probe(state: TrainState, stage_name, probe_domains, epoch):
         """DPM++(2M) val PSNR of the raw parameters and the EMA on a pinned
@@ -365,7 +433,7 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                     for _, b in zip(range(config.eval_probe_batches), ld)]
             variants = [("psnr", None)]
             if state.ema_params is not None:
-                variants.append(("psnr_ema", state.ema_params))
+                variants.append(("psnr_ema", state.gathered_ema()))
             row = {"stage": stage_name, "epoch": epoch + 1,
                    "step": int(state.step), "domain": dom,
                    "probe_steps": probe_steps, "time": time.time()}
@@ -394,28 +462,33 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
             if all("psnr_ema" in r for r in rows):
                 probe_state["last"]["psnr_ema"] = round(
                     sum(r["psnr_ema"] for r in rows) / len(rows), 3)
-            os.makedirs(config.output_path, exist_ok=True)
-            with open(os.path.join(config.output_path,
-                                   "eval_curve.jsonl"), "a") as f:
-                for r in rows:
-                    f.write(json.dumps(r) + "\n")
-            print("[eval_probe] " + "  ".join(
+            if main:
+                os.makedirs(config.output_path, exist_ok=True)
+                with open(os.path.join(config.output_path,
+                                       "eval_curve.jsonl"), "a") as f:
+                    for r in rows:
+                        f.write(json.dumps(r) + "\n")
+            say("[eval_probe] " + "  ".join(
                 f"{r['domain']}: {r['psnr']:.2f} dB"
                 + (f" (ema {r['psnr_ema']:.2f})" if "psnr_ema" in r else "")
                 for r in rows))
 
     state = None
+    data_parallel = None      # one DDP wrapper for the run's stages
     for stage_index, (stage_name, domain, stage_epochs) in enumerate(stages):
         if stage_epochs <= 0:
             continue
         if stage_index < resume_start_stage:
-            print(f"[train] resume: skipping completed stage {stage_name}")
+            say(f"[train] resume: skipping completed stage {stage_name}")
             continue
         if domain == "both":
-            loaders = [_loader(config, "atmospheric", "train", shuffle=True),
-                       _loader(config, "underwater", "train", shuffle=True)]
+            loaders = [_loader(config, "atmospheric", "train", shuffle=True,
+                               mesh=mesh),
+                       _loader(config, "underwater", "train", shuffle=True,
+                               mesh=mesh)]
         else:
-            loaders = [_loader(config, domain, "train", shuffle=True)]
+            loaders = [_loader(config, domain, "train", shuffle=True,
+                               mesh=mesh)]
         # Stage-2+ replay: every round(1/f)-th batch comes from the stage-1
         # domain instead (the step budget is unchanged).
         replay_loader = None
@@ -423,17 +496,23 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                 and domain in ("atmospheric", "underwater")):
             other = ("atmospheric" if domain == "underwater"
                      else "underwater")
-            replay_loader = _loader(config, other, "train", shuffle=True)
+            replay_loader = _loader(config, other, "train", shuffle=True,
+                                    mesh=mesh)
             replay_period = max(int(round(1.0 / config.stage2_replay)), 1)
-            print(f"[train] stage {stage_name}: replaying a {other} batch "
-                  f"every {replay_period} steps (stage2_replay="
-                  f"{config.stage2_replay:g})")
+            say(f"[train] stage {stage_name}: replaying a {other} batch "
+                f"every {replay_period} steps (stage2_replay="
+                f"{config.stage2_replay:g})")
         # The schedule counts optimizer updates: k micro-batches, one.
         steps_per_epoch = max(
             sum(len(l) for l in loaders) // max(config.grad_accum, 1), 1)
         # Fresh optimizer per stage; the same model carries over.
         state = create_train_state(config, model, steps_per_epoch,
                                    total_epochs=stage_epochs)
+        if mesh is not None:
+            shard_state(mesh, state, zero1=config.zero1,
+                        data_parallel=data_parallel)
+            if state.train_model is not model:
+                data_parallel = state.train_model
         step_fn = stage_step_fn(stage_cfgs[stage_index])
         loss_meta = dataclasses.asdict(stage_cfgs[stage_index])
         if resume_path and not resumed:
@@ -441,22 +520,27 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                 restored = restore_partial(resume_path,
                                            ("params", "ema_params"))
                 with torch.no_grad():
-                    model.load_state_dict(restored["params"], strict=True)
+                    # Full tensors; this rank's pieces of them.
+                    model.load_state_dict(localize_named(
+                        mesh, state.param_specs, restored["params"]),
+                        strict=True)
                     if state.ema_params is not None:
-                        src = restored.get("ema_params", restored["params"])
+                        src = localize_named(mesh, state.param_specs,
+                                             restored.get("ema_params",
+                                                          restored["params"]))
                         for n, e in state.ema_params.items():
                             e.copy_(src[n])
                 summary["steps"] = int(ck_meta.get("step") or 0)
-                print(f"[train] resumed params from finished stage "
-                      f"checkpoint {resume_path} "
-                      f"(step {summary['steps']}, fresh optimizer)")
+                say(f"[train] resumed params from finished stage "
+                    f"checkpoint {resume_path} "
+                    f"(step {summary['steps']}, fresh optimizer)")
             else:
                 saved_loss = ck_meta.get("loss_config")
                 if saved_loss is not None and saved_loss != loss_meta:
                     diff = {k: (saved_loss.get(k), v)
                             for k, v in loss_meta.items()
                             if saved_loss.get(k) != v}
-                    print(
+                    say(
                         "[train] WARNING: full-state resume with a CHANGED "
                         f"loss set {diff} — the restored Adam moments are "
                         "calibrated to the old objective; their tiny second "
@@ -469,8 +553,8 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                 # resumed run finishes the original budget.
                 summary["steps"] = (state.step * state.grad_accum
                                     + state.mini_step)
-                print(f"[train] resumed full state from {resume_path} "
-                      f"(step {state.step})")
+                say(f"[train] resumed full state from {resume_path} "
+                    f"(step {state.step})")
             resumed = True
 
         last_metrics: dict = {}
@@ -511,10 +595,10 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                                       prefix=f"Train {stage_name}/")
             sps = steps_per_epoch / max(time.time() - t_epoch, 1e-9)
             gn = last_metrics.get("grad_norm")
-            print(f"[{stage_name}] epoch {epoch+1}/{stage_epochs} "
-                  f"loss={last_metrics.get('total', float('nan')):.4f} "
-                  + (f"gnorm={float(gn):.2f} " if gn is not None else "")
-                  + f"{sps:.2f} steps/s")
+            say(f"[{stage_name}] epoch {epoch+1}/{stage_epochs} "
+                f"loss={last_metrics.get('total', float('nan')):.4f} "
+                + (f"gnorm={float(gn):.2f} " if gn is not None else "")
+                + f"{sps:.2f} steps/s")
             # A non-finite loss aborts the stage after an emergency save
             # (checked once an epoch: a per-step check would sync the card).
             if not np.isfinite(last_metrics.get("total", 0.0)):
@@ -549,6 +633,8 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
                 export_npz_snapshot(state)
             if max_steps and summary["steps"] >= max_steps:
                 break
+            # A SIGTERM on any rank stops them all at this epoch's end.
+            preempt["flag"] = _on_any_rank(preempt["flag"], device)
             if preempt["flag"]:
                 break
 
@@ -584,10 +670,15 @@ def _train(config: Config, max_steps: Optional[int], preempt: dict) -> dict:
 
 def make_sampler(config: Config, model: DynamicUNet,
                  quantize_uint8: bool = False,
-                 params: Optional[dict] = None) -> Callable[..., torch.Tensor]:
+                 params: Optional[dict] = None,
+                 mesh=None) -> Callable[..., torch.Tensor]:
     """sample_fn(cond_u8, generator=None, init_noise=None) over the [-1, 1]
     pipeline: uint8 NHWC in, [0, 1] float (or, with quantize_uint8,
     clip(x·255, 0, 255) as uint8) NHWC out, on cond_u8's device.
+
+    With a `mesh` whose "data" axis has several ranks the batch is sharded
+    over it (parallel.make_sharded_sampler): each rank samples its rows of
+    the global initial noise, and every rank returns the whole batch.
 
     The model samples the way it was trained: without use_conditioning the
     condition embedding stays zeroed (guidance 1.0 uses that default).
@@ -632,6 +723,8 @@ def make_sampler(config: Config, model: DynamicUNet,
                 return (out01 * 255.0).clamp(0, 255).to(torch.uint8)
             return out01
 
+    if axis_size(mesh, "data") > 1:
+        return make_sharded_sampler(mesh, sample_fn)
     return sample_fn
 
 
@@ -680,23 +773,32 @@ def evaluate(config: Config, split: str = "test",
     Inception pass.
     `checkpoint_path` (a checkpoint or a params npz) takes the place of
     `config.pretrained_path`.
+
+    Under several ranks every batch is sharded over the mesh's "data" axis
+    (batch_size must divide over it; the ragged last batch is padded, as in
+    JAX) and rank 0 alone scores, saves images and writes res.txt; the
+    other ranks return {}.
     """
     from ..data.registry import save_image
     from ..metrics import FID, StreamingFID, getUIQM, nmetrics, psnr, ssim_index
 
-    require_single_process()
-    device = resolve_device(config.device)
+    device, mesh = _start_ranks(config)
+    main = pdist.rank() == 0
+    if config.batch_size % axis_size(mesh, "data"):
+        raise ValueError(f"batch_size {config.batch_size} does not split "
+                         f"over {axis_size(mesh, 'data')} data ranks")
     # Eval runs with dropout 0 (the reference loads the net with dropout 0).
     eval_cfg = dataclasses.replace(
         config, dropout=0.0,
         pretrained_path=checkpoint_path or config.pretrained_path)
     model = init_params(eval_cfg, device).eval()
     fid_model = (FID(image_size=config.img_size, device=device)
-                 if compute_fid else None)
+                 if compute_fid and main else None)
     # With FID off the sampler quantizes to uint8 on the card: every
     # consumer starts from clip(x·255).astype(uint8), and the copy to the
     # host is 4× smaller. StreamingFID takes the float samples.
-    sampler = make_sampler(eval_cfg, model, quantize_uint8=fid_model is None)
+    sampler = make_sampler(eval_cfg, model, quantize_uint8=not compute_fid,
+                           mesh=mesh)
 
     results = {}
     for domain in ("underwater", "atmospheric"):
@@ -710,7 +812,7 @@ def evaluate(config: Config, split: str = "test",
         t0 = time.time()
         out_dir = os.path.join(config.output_path, "result",
                                _dataset_name(config, domain), split)
-        if save_images:
+        if save_images and main:
             os.makedirs(out_dir, exist_ok=True)
         generator = torch.Generator(device).manual_seed(config.seed)
 
@@ -777,6 +879,8 @@ def evaluate(config: Config, split: str = "test",
             for inp_dev, gt, names, n_act in staged_batches():
                 with profile_trace():
                     out = sampler(inp_dev, generator)
+                if not main:       # rank 0 scores the gathered batch
+                    continue
                 inflight.append((out, gt, names, n_act))
                 while len(inflight) >= 2:
                     drain_one()
@@ -802,6 +906,8 @@ def evaluate(config: Config, split: str = "test",
             res["fid_pretrained"] = 1.0 if fid_model.pretrained else 0.0
         res["n_images"] = n
         res["time_cost"] = time_cost
+        if not main:
+            continue
         results[domain] = res
 
         report_dir = os.path.join(config.output_path, "result",

@@ -16,6 +16,17 @@ the caller's `torch.Generator`, in that order; the global generator is never
 used. For parity tests the step also takes `t` and `noise`, which replace
 the first two draws.
 
+On a mesh (`mesh`, parallel/sharding.py::make_sharded_train_step) each rank
+passes its rows of the global batch. t, ε and the p_uncond drop are drawn
+for the global batch from the generator, which is in the same state on
+every rank, and each rank keeps its rows (as JAX draws them from one key);
+a given `t` or `noise` covers the global batch. The dropout masks come
+from a generator of the rank's own (equal across "model", where the
+activations are replicated), seeded from the run's seed, the data rank and
+the micro-step. The loss's global-batch statistics are summed over "data"
+(losses/composite.py, models/unet.py), DDP averages the gradients, and the
+metrics are averaged over "data". One rank calls no collective.
+
 Freezing a gated block needs more than a zero gradient: AdamW's decay and
 its moments' decay would still move it. As the JAX step does, the blend
 puts the block's parameters and moments back to their values before the
@@ -30,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Mapping, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -37,6 +49,8 @@ from ..diffusion.process import predict_x0_from_eps, q_sample
 from ..diffusion.schedule import DiffusionSchedule
 from ..losses.composite import CompositeLossConfig, composite_enhancement_loss
 from ..models.unet import NUM_MIDDLE_BLOCKS, domain_gates_from_batch
+from ..parallel.collectives import all_reduce_
+from ..parallel.mesh import axis_group, axis_rank, axis_size
 from ..utils.precision import precision_for
 from .train_state import TrainState
 
@@ -45,6 +59,16 @@ def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
     """uint8 [0, 255] -> float32 [-1, 1], on x's device (so the copy to the
     card moves 1 byte a pixel)."""
     return x.to(torch.float32) / 255.0 * 2.0 - 1.0
+
+
+def dropout_seed(generator: torch.Generator, data_rank: int,
+                 counter: int) -> int:
+    """The seed of a data rank's dropout generator at micro-step `counter`:
+    a function of the run's generator seed, the rank and the step, so a
+    resumed run draws the masks an uninterrupted one draws."""
+    mix = np.random.SeedSequence([generator.initial_seed() % 2**63,
+                                  data_rank, counter])
+    return int(mix.generate_state(1, np.uint64)[0] % 2**63)
 
 
 def middle_block(name: str) -> Optional[int]:
@@ -105,6 +129,7 @@ def diffusion_train_step(
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     vgg_loss_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One optimization step, in place on `state`.
 
@@ -115,49 +140,63 @@ def diffusion_train_step(
     "grad_norm" (of the gated grads, before the clip) and, with domain
     routing, "underwater_gate"; device scalars.
     """
-    model = state.model
     device = next(iter(state.params.values())).device
     input_img = normalize_uint8(torch.as_tensor(batch["input"]).to(device))
     gt = normalize_uint8(torch.as_tensor(batch["gt"]).to(device))
     B = gt.shape[0]
+    # This rank's rows of the global batch of B·D.
+    D, d = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    data_group = axis_group(mesh, "data")
+    rows = slice(d * B, (d + 1) * B)
 
     if t is None:
-        t = torch.randint(0, schedule.num_steps, (B,), device=device,
+        t = torch.randint(0, schedule.num_steps, (B * D,), device=device,
                           generator=generator)
-    t = t.to(device)
+    t = t[rows].to(device)
     if noise is None:
-        noise = torch.randn(gt.shape, device=device, generator=generator)
-    noise = noise.to(device)
+        noise = torch.randn((B * D,) + tuple(gt.shape[1:]), device=device,
+                            generator=generator)
+    noise = noise[rows].to(device)
     y_t = q_sample(schedule, gt, t, noise)
     x6 = torch.cat([input_img, y_t], dim=-1)
     if use_conditioning:
-        context_zero = torch.rand((B,), device=device,
-                                  generator=generator) < p_uncond
+        context_zero = torch.rand((B * D,), device=device,
+                                  generator=generator)[rows] < p_uncond
     else:
         context_zero = True
     aux_w = (torch.as_tensor(schedule.alphas_bar, device=device)[t.long()]
              if loss_config.aux_snr_weight else None)
+    drop_gen = generator
+    if D > 1:
+        drop_gen = torch.Generator(device).manual_seed(dropout_seed(
+            generator, d, state.step * state.grad_accum + state.mini_step))
 
     state.optimizer.zero_grad(set_to_none=True)
     with record_function("train/forward"):
-        noise_pred = model(x6, t, cond_image=input_img,
-                           context_zero=context_zero, train=True,
-                           generator=generator)
+        noise_pred = state.train_model(x6, t, cond_image=input_img,
+                                       context_zero=context_zero, train=True,
+                                       generator=drop_gen)
     with record_function("train/loss"):
         x0_pred = predict_x0_from_eps(schedule, y_t, t, noise_pred)
         loss, parts = composite_enhancement_loss(
             noise_pred, noise, x0_pred, gt, loss_config,
             dino_loss_fn=dino_loss_fn, vgg_loss_fn=vgg_loss_fn,
-            aux_weights=aux_w)
+            aux_weights=aux_w, group=data_group)
     with record_function("train/backward"):
         loss.backward()
 
-    gates = domain_gates_from_batch(input_img) if domain_routing else None
+    gates = (domain_gates_from_batch(input_img, group=data_group)
+             if domain_routing else None)
     with record_function("train/update"):
         parts["grad_norm"] = gated_update(state, gates)
     if gates is not None:
         parts["underwater_gate"] = gates[0]
-    return state, {k: v.detach() for k, v in parts.items()}
+    metrics = {k: v.detach() for k, v in parts.items()}
+    if data_group is not None:   # the global batch's: the mean over "data"
+        values = all_reduce_(torch.stack(list(metrics.values())).float(),
+                             data_group) / D
+        metrics = dict(zip(metrics, values.unbind()))
+    return state, metrics
 
 
 def gated_update(state: TrainState,
@@ -175,8 +214,7 @@ def gated_update(state: TrainState,
         closed = {n: gates[middle_block(n)] <= 0 for n in state.params
                   if middle_block(n) is not None}
     if state.grad_accum > 1:
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(state.grads())))
+        grad_norm = state.global_norm()
         if not state.accumulate(closed):
             return grad_norm
     if gates is not None:
@@ -201,9 +239,11 @@ def make_train_step(
     p_uncond: float = 0.02,
     domain_routing: bool = True,
     vgg_loss_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Callable:
     """step(state, batch, generator, t=None, noise=None) -> (state,
-    metrics), closed over the static configuration. The schedule's tables
+    metrics), closed over the static configuration (and the mesh, None for
+    one process). The schedule's tables
     are copied to the model's device on the first call (a copy from the
     host at every step would wait for the card). An fp32 model's step runs
     with TF32 off (utils/precision.py)."""
@@ -221,6 +261,6 @@ def make_train_step(
             return diffusion_train_step(
                 state, batch, generator, tables, loss_config, dino_loss_fn,
                 use_conditioning, p_uncond, domain_routing, t=t, noise=noise,
-                vgg_loss_fn=vgg_loss_fn)
+                vgg_loss_fn=vgg_loss_fn, mesh=mesh)
 
     return step

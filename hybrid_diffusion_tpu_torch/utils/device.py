@@ -1,11 +1,8 @@
-"""The device an entry point runs on, and the one-process rule.
+"""The device an entry point runs on.
 
 Every entry point of the port takes `device="cuda"` by default and raises
-without a card unless the caller asks for the CPU. The port runs in one
-process on one card: data and model parallelism are not ported
-(ROADMAP.md, queue 1, item 7), so `train()` and `evaluate()` refuse to run
-under an initialized `torch.distributed` process group rather than train
-unsynchronised replicas.
+without a card unless the caller asks for the CPU. Under several ranks
+each rank runs on its own card (parallel/distributed.py::rank_device).
 """
 
 from __future__ import annotations
@@ -20,13 +17,3 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return device
-
-
-def require_single_process() -> None:
-    """Raise when a torch.distributed process group is initialized."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        raise NotImplementedError(
-            "the port runs in one process on one card; several ranks (data "
-            "or model parallelism) are not ported yet (ROADMAP.md, queue 1, "
-            "item 7)")

@@ -18,6 +18,7 @@ Tolerances:
 Everything else is control flow and compared exactly.
 """
 
+import dataclasses
 import json
 import os
 
@@ -39,6 +40,7 @@ from hybrid_diffusion_tpu.utils.params_io import flatten_params as jax_flatten
 from hybrid_diffusion_tpu.utils.params_io import load_params_npz as jax_load_npz
 from hybrid_diffusion_tpu_torch import cli
 from hybrid_diffusion_tpu_torch.config import Config, parse_config
+from hybrid_diffusion_tpu_torch.data.registry import load_image
 from hybrid_diffusion_tpu_torch.train import checkpoint as tck
 from hybrid_diffusion_tpu_torch.train import loop
 from hybrid_diffusion_tpu_torch.train.step import gated_update
@@ -359,10 +361,14 @@ def test_cli_dispatch(tmp_path, monkeypatch, capsys):
     c = calls[0][1]
     assert c.device == "cpu" and not c.bf16 and list(c.channel_mult) == [1, 2]
     assert calls[1][1].device == "cuda"         # the card by default
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        parse_config(["--mesh_model", "2"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Config(zero1=True)
+    # The parallel flags parse; a mesh that the world cannot hold raises
+    # ValueError where an entry point starts, before any work.
+    par = parse_config(["--mesh_model", "2", "--mesh_data", "1", "--zero1"])
+    assert (par.mesh_data, par.mesh_model, par.zero1) == (1, 2, True)
+    assert Config(zero1=True).zero1 and Config().mesh_data is None
+    for bad in (dict(mesh_model=2), dict(mesh_data=2)):
+        with pytest.raises(ValueError, match="devices"):
+            loop._start_ranks(Config(device="cpu", **bad))
     assert Config().stage_loss_config(1) == Config().loss_config
     assert Config(stage2_losses="dino=0,color=2").stage_loss_config(1) \
         .color_weight == 2.0
@@ -379,22 +385,55 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch,
 
 
 def test_entry_points_refuse_a_process_group(tmp_path):
-    """train() and evaluate() run in one process on one card: under an
-    initialized process group (gloo, world size 1, a file store) they raise
-    NotImplementedError before any work instead of training unsynchronised
-    replicas."""
+    """The name is historical: train() and evaluate() refused a process
+    group while the port ran in one process only. Now, under an initialized
+    group (gloo, world size 1, a file store) they run on a 1×1 mesh and
+    give the state and images that one process gives: the same parameters,
+    AdamW moments and EMA, the same checkpoint, the same sampled bytes."""
     dist = torch.distributed
+
+    def run(tag):
+        c = cfg(tmp_path / tag, ema_decay=0.5, save_checkpoint=1,
+                epochs_stage_2=0, ddim_step=4)
+        summary = loop.train(c, max_steps=2)
+        state = summary["state"]
+        ck = summary["stages"][0]["checkpoint"]
+        res = loop.evaluate(dataclasses.replace(c, state="test"),
+                            checkpoint_path=ck, compute_fid=False)
+        images = sorted((tmp_path / tag / "o").rglob("*.png"))
+        return dict(mesh=state.mesh,
+                    params={n: p.detach().clone()
+                            for n, p in state.params.items()},
+                    moments={n: state.moments(n)["exp_avg"].clone()
+                             for n in state.params},
+                    ema=dict(state.ema_params), results=res,
+                    payload=tck._load_payload(ck),
+                    images=[np.asarray(load_image(str(p))) for p in images])
+
+    alone = run("alone")
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
                             world_size=1, rank=0)
     try:
-        c = cfg(tmp_path)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            loop.train(c)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            loop.evaluate(c)
+        grouped = run("grouped")
     finally:
         dist.destroy_process_group()
-    assert not (tmp_path / "ck").exists()
+    assert alone["mesh"] is None and tuple(grouped["mesh"].shape) == (1, 1)
+    for key in ("params", "moments", "ema"):
+        for n, t in alone[key].items():
+            assert torch.equal(grouped[key][n], t), (key, n)
+    timing = ("sample_wall_s", "fetch_block_s", "time_cost", "fid")
+    assert grouped["results"].keys() == alone["results"].keys()
+    for domain, res in alone["results"].items():
+        assert {k: v for k, v in grouped["results"][domain].items()
+                if k not in timing} == {k: v for k, v in res.items()
+                                        if k not in timing}
+    for key in ("params", "ema_params"):
+        for n, t in alone["payload"][key].items():
+            assert torch.equal(grouped["payload"][key][n], t), (key, n)
+    assert alone["payload"]["step"] == grouped["payload"]["step"] == 2
+    assert len(alone["images"]) == len(grouped["images"]) > 0
+    for a, b in zip(alone["images"], grouped["images"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_evaluate_ragged_batch_and_enhance_image(tmp_path):
