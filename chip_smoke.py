@@ -122,18 +122,42 @@ From a clean checkout, with no arguments, it:
             times, peak memory and launches by shape, the collectives that
             gloo refuses on CUDA tensors and where they are checked
             instead. Two ranks sharing one card are no scaling figure.
+  16. tools the port's tools, each as its own process (python -m
+            hybrid_diffusion_tpu_torch...., as a user starts it): the bench
+            at the flagship width (DDIM-100 sampling at 256², batch 16,
+            bf16, BENCH_REPS 2: one JSON line, a finite positive img/s, 400
+            attention launches a run; BENCH_MODE=train, BENCH_REPS 3: 4
+            launches a step; BENCH_MODE=attn: four lines, the kernel arm
+            launching, the plain arm not), its JSON and `#` lines printed;
+            eval_flagship at the committed operating point
+            (flagship256_r5_dpm5_eval.json's argv: the r5 npz, DPM++2M-5,
+            73 val images a domain), its PSNR/SSIM printed beside the
+            committed ones and at most EVAL_PSNR_GAP_DB below them;
+            rescore_metrics of the images it saved (the same PSNR) and
+            make_preview_grid of them; sweep_sampler over ddim:15 and
+            dpm++2m:5; export_params of the loop phase's last checkpoint
+            (auto subtree) and eval_flagship of that npz; demo_e2e (4
+            steps, 64²), demo_staged (2 steps a stage), both evaluating
+            with DDIM-10, demo_cfg (4 steps, a T 100 chain at w 0 and 1.8)
+            and regen_cfg_grids of its cfg_params.npz, each writing JSON of
+            finite values (exit 0, or 1 for a demo's own verdict: no
+            traceback, and the verdict's keys in its JSON); all but the
+            bench run at once.
 
 The kernel phase also holds the attention's forward and gradients (the
 kernel's forward inside the autograd Function, the backward recomputed
 through the plain version) against the plain version's at the training
-shape (16, 1024, 8, 32) in bf16 and at (2, 64, 8, 32) in fp32, on strided
-views of one packed projection, and times forward + backward against
+shape (16, 1024, 8, 32) in bf16 and at (2, 64, 8, 32) in fp32, and at the
+four CFG shapes and the head-sharded one in bf16, on strided views of one
+packed projection, and times forward + backward against
 scaled_dot_product_attention's.
 
 Every phase prints one line with its seconds. The whole run must finish
 within BUDGET_S; a phase that fails or ends past the budget stops the run
-with a non-zero exit. The last lines are the kernels' JSON record, the
-card's nvidia-smi line and {"ok": true, "device": {...}}.
+with a non-zero exit. The last lines are the kernels' JSON record (the
+bf16 kernel's serve-shape row carries the bench's launches beside the serve
+phase's, by mode, under bench_launches), the card's nvidia-smi line and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -227,6 +251,10 @@ KERNEL_CASES = [
 # they agree but for the order the card sums in (0 measured on the CPU).
 TRAIN_GRAD_CASES = [TRAIN_CASE[:5], (2, 64, 8, 32, "float32")]
 GRAD_RTOL = {"bfloat16": 2.0 ** -8, "float32": 1e-6}
+# The reverse mode also runs at the CFG shapes (the cfg phase's train step,
+# at its batch 80: 2B = 160 is the sampler's) and the head-sharded one (the
+# parallel phase's TP step): the same checks and times there, the forward
+# at the CFG shapes within CFG_RTOL of max|out| as in the kernel phase.
 
 # The train phase's steps (the first one warms up and is left out of the
 # median); its settings are profile_train.py's FINE_TUNE: batch 16, the r5
@@ -260,6 +288,7 @@ CFG_TRAIN_STEPS = 4
 CFG_BATCH = 160
 CFG_SHAPES = {(1024, 16): 5, (256, 32): 5, (64, 32): 5, (16, 32): 6}
 CFG_CASES = [(CFG_BATCH, N, 8, d, "bfloat16", "randn") for N, d in CFG_SHAPES]
+GRAD_SHAPE_CASES = [c[:5] for c in CFG_CASES] + [TP_CASE[:5]]
 # Their tolerance is relative to the largest output: at N 16 the outputs
 # reach about 2.2 (an average of 16 values), where half a unit in bf16's
 # last place is 2^-8, not the 0.03-0.07 of N 1024 that ATOL was set for.
@@ -441,7 +470,7 @@ def phase_grad(att, torch, device_ms):
 
     gen = torch.Generator("cuda").manual_seed(1)
     rows = {}
-    for B, N, h, d, dname in TRAIN_GRAD_CASES:
+    for B, N, h, d, dname in TRAIN_GRAD_CASES + GRAD_SHAPE_CASES:
         dtype = getattr(torch, dname)
         qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen)
         qkv = qkv.to(dtype).requires_grad_()
@@ -470,7 +499,9 @@ def phase_grad(att, torch, device_ms):
             fwd_ref = att.attention_reference(
                 *qkv.detach().float().unbind(2))
         fwd_err = (out.detach().float() - fwd_ref).abs().max().item()
-        fwd_tol = ATOL[dname, "randn"]
+        fwd_tol = (CFG_RTOL * fwd_ref.abs().max().item()
+                   if (B, N, h, d, dname, "randn") in CFG_CASES
+                   else ATOL[dname, "randn"])
         if not math.isfinite(fwd_err) or fwd_err > fwd_tol:
             fail(f"the Function's forward (the kernel) disagrees with the "
                  f"fp32 plain version at B={B} N={N} h={h} d={d} {dtype}: "
@@ -830,7 +861,8 @@ def phase_loop(att, torch, np, tmp: Path) -> dict:
                 save_ms=[s["ms"] for s in first["saves"]],
                 save_gib=periodic[0]["gib"],
                 probe_rows=rows, export=side["subtree"],
-                resumed_from=steps_per_stage)
+                resumed_from=steps_per_stage,
+                last_checkpoint=summary["stages"][-1]["checkpoint"])
 
 
 def phase_eval(att, torch, np, tmp: Path) -> dict:
@@ -1668,6 +1700,325 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
                 tp_launches=tp_launches, tp_shape=tp_shape)
 
 
+# The tools phase: the port's bench and scripts, each a subprocess started
+# as a user starts it (python -m ...), in a temporary directory with the
+# checkout on PYTHONPATH.
+TOOL_TIMEOUT_S = 240.0
+# CPU threads of each tool that runs beside others (the card's machine has
+# 8 cores, six chains run at once).
+TOOL_THREADS = 2
+# The bench at the flagship width: DDIM-100 sampling at 256², batch 16,
+# bf16 (BENCH_REPS timed runs after the bench's warm-up), the train step at
+# batch 16 (DINO off), the attention A/B at (16, 1024, 8, 32). Every U-Net
+# call runs the 4 middle blocks' attention: 4 × 100 launches a sampling run.
+BENCH_SAMPLE_REPS = 2
+BENCH_TRAIN_REPS = 3
+BENCH_DDIM_STEPS = 100
+# eval_flagship at the committed operating point: the argv that
+# flagship256_r5_dpm5_eval.json records (the r5 npz, DPM++2M-5, guidance
+# 1.0, the synthetic val split at its default length 512: 73 images a
+# domain, no --fid). Its PSNR and SSIM are printed beside the committed
+# ones; the run fails if the port's PSNR is more than EVAL_PSNR_GAP_DB
+# below them (the committed run sampled other noise with the JAX package).
+COMMITTED_EVAL = ROOT / "flagship256_r5_dpm5_eval.json"
+EVAL_PSNR_GAP_DB = 1.0
+# rescore_metrics re-reads the images eval_flagship saved (lossless PNGs of
+# the scored uint8 samples): the same mean PSNR, rounded to 3 places by
+# eval_flagship and to 4 by rescore, so within RESCORE_PSNR_ATOL.
+RESCORE_PSNR_ATOL = 1e-3
+# The sweep's and the exported checkpoint's eval: the synthetic val split at
+# length 14 (2 images a domain).
+TOOLS_SHORT_LENGTH = 14
+# The demos at a few steps, their evals cut to DDIM-10 (demo_staged's
+# corpus to 64 pairs a domain); demo_cfg and regen_cfg_grids over a T 100
+# chain (CFGConfig's T is 500) at two guidance scales, 2 rows. Cuts of
+# depth, not of width.
+_CFG_CUT = ["--T", "100", "--ws", "0,1.8", "--nrow", "2"]
+DEMO_ARGV = {"demo_e2e": ["--steps", "4", "--size", "64",
+                          "--ddim_steps", "10"],
+             "demo_staged": ["--steps_per_stage", "2", "--ddim_steps", "10",
+                             "--synthetic_length", "64"],
+             "demo_cfg": ["--steps", "4"] + _CFG_CUT,
+             "regen_cfg_grids": _CFG_CUT}
+
+
+def _run_tool(name: str, argv: list, tmp: Path, env: dict | None = None,
+              ok_codes=(0,), threads: int | None = None) -> dict:
+    """`python -m hybrid_diffusion_tpu_torch.<argv...>` in `tmp`, the
+    checkout on its path; fails the run on another exit code or after
+    TOOL_TIMEOUT_S. `threads` caps its CPU threads (OMP_NUM_THREADS).
+    Returns its exit code, stdout's JSON lines and `# record` lines, its
+    `#` lines and its seconds."""
+    import os
+    import subprocess
+
+    cmd = [sys.executable, "-m", "hybrid_diffusion_tpu_torch." + argv[0]]
+    cmd += [str(a) for a in argv[1:]]
+    path = os.pathsep.join([str(ROOT)] + [p for p in os.environ.get(
+        "PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    try:
+        # From tmp: what a tool writes to its default relative paths
+        # (output/...) stays out of the checkout.
+        proc = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True,
+                              timeout=TOOL_TIMEOUT_S,
+                              env={**os.environ, "PYTHONPATH": path,
+                                   **({"OMP_NUM_THREADS": str(threads)}
+                                      if threads else {}),
+                                   **(env or {})})
+    except subprocess.TimeoutExpired:
+        fail(f"tools: {name} ran past {TOOL_TIMEOUT_S:.0f}s: {' '.join(cmd)}")
+    seconds = time.perf_counter() - t0
+    (tmp / f"{name}.out").write_text(proc.stdout)
+    (tmp / f"{name}.err").write_text(proc.stderr)
+    # A tool's own verdict may be a non-zero code in ok_codes; an uncaught
+    # exception (exit 1 too) never is.
+    if proc.returncode not in ok_codes or "Traceback (most recent call last)" \
+            in proc.stderr:
+        fail(f"tools: {name} exited {proc.returncode}: {' '.join(cmd)}\n"
+             f"{proc.stderr[-3000:]}")
+    lines = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            try:
+                lines.append(json.loads(line))
+            except ValueError:
+                pass        # the scripts' indented JSON starts with "{" alone
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+    records = [json.loads(ln[len("# record "):]) for ln in notes
+               if ln.startswith("# record ")]
+    return dict(rc=proc.returncode, lines=lines, records=records,
+                notes=notes, seconds=seconds)
+
+
+def _bench_lines(run: dict, n: int, unit: str) -> list:
+    """The bench's n result lines: each with the four keys and a finite
+    positive value in `unit`."""
+    lines = run["lines"]
+    if len(lines) != n or any(
+            set(ln) != {"metric", "value", "unit", "vs_baseline"}
+            or ln["unit"] != unit or not math.isfinite(ln["value"])
+            or ln["value"] <= 0 for ln in lines):
+        fail(f"tools: the bench printed {lines}, expected {n} line(s) of "
+             f"metric, value, unit ({unit}), vs_baseline, finite and > 0")
+    return lines
+
+
+def _finite_tree(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(_finite_tree(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(_finite_tree(v) for v in obj)
+    return not isinstance(obj, float) or math.isfinite(obj)
+
+
+def phase_tools(np, tmp: Path, loop_ckpt: Path) -> dict:
+    """The bench, eval_flagship, sweep_sampler, export_params, rescore,
+    the preview grid and the four demos, each as its own process on the
+    card; returns the phase's record."""
+    rec = {}
+    # ------------------------------------------------------------ bench
+    run = _run_tool("bench_sample", ["bench"], tmp, env=dict(
+        BENCH_REPS=str(BENCH_SAMPLE_REPS), BENCH_STEPS=str(BENCH_DDIM_STEPS)))
+    (line,) = _bench_lines(run, 1, "images/sec")
+    want = (f"images/sec/chip 256x256 DDIM-{BENCH_DDIM_STEPS} sampling "
+            f"(batch 16, bf16)")
+    (record,) = run["records"]
+    if line["metric"] != want:
+        fail(f"tools: bench metric {line['metric']!r}, expected {want!r}")
+    if record["attention_launches"] != 4 * BENCH_DDIM_STEPS * BENCH_SAMPLE_REPS:
+        fail(f"tools: {BENCH_SAMPLE_REPS} DDIM-{BENCH_DDIM_STEPS} runs "
+             f"launched the kernel {record['attention_launches']} times, "
+             f"expected {4 * BENCH_DDIM_STEPS} a run")
+    rec["bench_sample"] = dict(line=line, record=record, notes=run["notes"],
+                               seconds=run["seconds"])
+    run = _run_tool("bench_train", ["bench"], tmp, env=dict(
+        BENCH_MODE="train", BENCH_REPS=str(BENCH_TRAIN_REPS)))
+    (line,) = _bench_lines(run, 1, "steps/sec")
+    (record,) = run["records"]
+    if record["attention_launches"] != 4 * BENCH_TRAIN_REPS:
+        fail(f"tools: {BENCH_TRAIN_REPS} train steps launched the kernel "
+             f"{record['attention_launches']} times, expected 4 a step")
+    rec["bench_train"] = dict(line=line, record=record, notes=run["notes"],
+                              seconds=run["seconds"])
+    run = _run_tool("bench_attn", ["bench"], tmp, env=dict(BENCH_MODE="attn"))
+    lines = _bench_lines(run, 4, "us")
+    kernel_launches = sum(r["attention_launches"] for r in run["records"]
+                          if r["arm"] == "kernel")
+    if any(r["attention_launches"] for r in run["records"]
+           if r["arm"] == "plain") or not kernel_launches:
+        fail(f"tools: the attention A/B launched {run['records']}: the plain "
+             f"arm must launch no kernel, the kernel arm must")
+    rec["bench_attn"] = dict(lines=lines, records=run["records"],
+                             notes=run["notes"], seconds=run["seconds"])
+    # The attn mode's count is of its timing loops, not of a path.
+    rec["bench_launches"] = dict(
+        sample=rec["bench_sample"]["record"]["attention_launches"],
+        train=rec["bench_train"]["record"]["attention_launches"],
+        attn=kernel_launches)
+
+    # ------------------------------------------------------------ the rest
+    # Six chains at once, the bench done: their times are not measured
+    # figures, and one tool's start-up (~8 s) would otherwise follow
+    # another's. A failing tool stops the run (fail() raises SystemExit,
+    # which its future re-raises here).
+    committed = json.loads(COMMITTED_EVAL.read_text())
+    weights = ROOT / committed["checkpoint"]
+    chains = {"eval": lambda: _tools_eval(tmp, committed, weights),
+              "sweep": lambda: _tools_sweep(tmp, weights),
+              "export": lambda: _tools_export(tmp, loop_ckpt),
+              "demo_e2e": lambda: _tools_demo(tmp, "demo_e2e", DEMO_ARGV[
+                  "demo_e2e"] + ["--keep", tmp / "demo_e2e"]),
+              "demo_staged": lambda: _tools_demo(tmp, "demo_staged", DEMO_ARGV[
+                  "demo_staged"] + ["--keep", tmp / "demo_staged"]),
+              "demo_cfg": lambda: _tools_cfg(tmp)}
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(chains)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in chains.items()}
+        for name, fut in futures.items():
+            rec.update(fut.result())
+    return rec
+
+
+def _tools_eval(tmp: Path, committed: dict, weights: Path) -> dict:
+    """eval_flagship at the committed operating point, then rescore_metrics
+    and make_preview_grid of the images it saved."""
+    from hybrid_diffusion_tpu_torch.data.registry import _png_decode
+
+    ev_dir = tmp / "ev"
+    run = _run_tool("eval_flagship", [
+        "scripts.eval_flagship", "--ckpt", weights,
+        "--sampler", committed["sampler"], "--ddim_steps", committed["steps"],
+        "--guidance", committed["guidance"], "--save_images",
+        "--out_dir", ev_dir, "--out", tmp / "ev.json"], tmp,
+        threads=TOOL_THREADS)
+    ev = json.loads((tmp / "ev.json").read_text())
+    for domain, want in committed["results"].items():
+        got = ev["results"].get(domain, {})
+        if got.get("n_images") != want["n_images"] or not _finite_tree(got):
+            fail(f"tools: eval_flagship {domain}: {got}, expected "
+                 f"{want['n_images']:.0f} images and finite metrics")
+        if got["psnr"] < want["psnr"] - EVAL_PSNR_GAP_DB:
+            fail(f"tools: eval_flagship {domain} PSNR {got['psnr']} dB, "
+                 f"more than {EVAL_PSNR_GAP_DB} dB below the committed "
+                 f"{want['psnr']}")
+    out = {"eval": dict(results=ev["results"], seconds=run["seconds"],
+                        committed={d: {k: r[k] for k in ("psnr", "ssim")}
+                                   for d, r in committed["results"].items()})}
+    run = _run_tool("rescore", [
+        "scripts.rescore_metrics", "--root", ev_dir / "result",
+        "--size", "256", "--synthetic_length", "512",
+        "--out", tmp / "rescore.json"], tmp,
+        threads=TOOL_THREADS)
+    rs = json.loads((tmp / "rescore.json").read_text())
+    for domain, got in ev["results"].items():
+        if rs.get(domain, {}).get("n_images") != got["n_images"] or abs(
+                rs[domain]["psnr"] - got["psnr"]) > RESCORE_PSNR_ATOL:
+            fail(f"tools: rescore {domain} {rs.get(domain)} against "
+                 f"eval_flagship's {got}")
+    out["rescore"] = dict(results=rs, seconds=run["seconds"])
+    grid = tmp / "grid.png"
+    run = _run_tool("preview_grid", [
+        "scripts.make_preview_grid", "--results",
+        ev_dir / "result" / "synthetic-underwater" / "val",
+        "--dataset", "synthetic-underwater", "--size", "256",
+        "--synthetic_length", "512", "--rows", "3", "--out", grid], tmp,
+        threads=TOOL_THREADS)
+    img = _png_decode(grid.read_bytes())
+    if img is None or img.shape != (3 * 256, 3 * 256, 3):
+        fail(f"tools: the preview grid is "
+             f"{None if img is None else img.shape}, expected (768, 768, 3)")
+    out["preview_grid"] = dict(shape=list(img.shape), seconds=run["seconds"])
+    return out
+
+
+def _tools_sweep(tmp: Path, weights: Path) -> dict:
+    run = _run_tool("sweep", [
+        "scripts.sweep_sampler", "--ckpt", weights,
+        "--points", "ddim:15", "dpm++2m:5",
+        "--synthetic_length", TOOLS_SHORT_LENGTH,
+        "--out", tmp / "sweep.json"], tmp,
+        threads=TOOL_THREADS)
+    sw = json.loads((tmp / "sweep.json").read_text())
+    if [(r["sampler"], r["steps"]) for r in sw["rows"]] != [
+            ("ddim", 15), ("dpm++2m", 5)] or not _finite_tree(sw) or any(
+            "psnr" not in res for r in sw["rows"]
+            for res in r["results"].values()):
+        fail(f"tools: sweep_sampler wrote {sw}")
+    return {"sweep": dict(rows=sw["rows"], seconds=run["seconds"])}
+
+
+def _tools_export(tmp: Path, loop_ckpt: Path) -> dict:
+    """export_params of the loop's checkpoint, then eval_flagship of the
+    npz it wrote."""
+    exported = tmp / "export.npz"
+    run = _run_tool("export", [
+        "scripts.export_params", "--ckpt", loop_ckpt, "--out", exported], tmp,
+        threads=TOOL_THREADS)
+    side = json.loads((tmp / "export.npz.json").read_text())
+    if side["subtree"] not in ("params", "ema_params") or side["step"] is None:
+        fail(f"tools: export_params sidecar {side}")
+    run2 = _run_tool("export_eval", [
+        "scripts.eval_flagship", "--ckpt", exported, "--sampler", "dpm++2m",
+        "--ddim_steps", "5", "--synthetic_length", TOOLS_SHORT_LENGTH,
+        "--out_dir", tmp / "ev_export", "--out", tmp / "ev_export.json"], tmp,
+        threads=TOOL_THREADS)
+    ex = json.loads((tmp / "ev_export.json").read_text())
+    if set(ex["results"]) != {"underwater", "atmospheric"} or not all(
+            math.isfinite(r.get("psnr", float("nan")))
+            for r in ex["results"].values()):
+        fail(f"tools: the exported checkpoint evaluated to {ex}")
+    return {"export": dict(sidecar=side, results=ex["results"],
+                           seconds=run["seconds"],
+                           eval_seconds=run2["seconds"])}
+
+
+# The keys a demo's JSON holds only once it has reached its verdict.
+DEMO_VERDICT_KEYS = {"demo_e2e": ("untrained", "trained",
+                                  "degraded_input_baseline"),
+                     "demo_staged": ("trained", "degraded_input_baseline"),
+                     "demo_cfg": ("sweep", "guidance_lift"),
+                     "regen_cfg_grids": ("sweep",)}
+
+
+def _tools_demo(tmp: Path, name: str, argv: list) -> dict:
+    """One demo; exit 1 is a demo's own verdict (too few steps to beat its
+    baseline) when it ran to that verdict: no traceback, and its JSON holds
+    the verdict's keys, with finite values. regen_cfg_grids has no
+    verdict: exit 0 only."""
+    run = _run_tool(name, [f"scripts.{name}"] + argv + [
+        "--out", tmp / f"{name}.json"], tmp,
+        ok_codes=(0,) if name == "regen_cfg_grids" else (0, 1),
+        threads=TOOL_THREADS)
+    out = json.loads((tmp / f"{name}.json").read_text())
+    missing = [k for k in DEMO_VERDICT_KEYS[name] if k not in out]
+    if missing:
+        fail(f"tools: {name} exited {run['rc']} without {missing} in its "
+             f"JSON: {out}")
+    if not _finite_tree(out):
+        fail(f"tools: {name} wrote non-finite values: {out}")
+    return {name: dict(rc=run["rc"], seconds=run["seconds"], summary=out)}
+
+
+def _tools_cfg(tmp: Path) -> dict:
+    """demo_cfg, then regen_cfg_grids of the cfg_params.npz it wrote."""
+    out = _tools_demo(tmp, "demo_cfg", DEMO_ARGV["demo_cfg"]
+                      + ["--keep", tmp / "cfg"])
+    out.update(_tools_demo(tmp, "regen_cfg_grids", DEMO_ARGV[
+        "regen_cfg_grids"] + ["--params", tmp / "cfg" / "cfg_params.npz"]))
+    return out
+
+
+def fwd_bwd_fields(g: dict) -> dict:
+    """A kernels-record row's forward + backward keys from phase_grad's row."""
+    return {"fwd_bwd_shape": [g["B"], g["N"], g["h"], g["d"]],
+            "fwd_bwd_ms": g["fwd_bwd_ms"],
+            "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],
+            "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"],
+            "grad_max_abs_err": g["grad_max_abs_err"]}
+
+
 def psnr(a, b) -> float:
     mse = float(((a - b) ** 2).mean())
     return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
@@ -1903,6 +2254,7 @@ def main() -> None:
     # ---------------------------------------------------------------- loop
 
     tmp = Path(tempfile.mkdtemp(prefix="hdt_chip_smoke_"))
+    tools_tmp = Path(tempfile.mkdtemp(prefix="hdt_chip_tools_"))
     try:
         t0 = time.perf_counter()
         lp = phase_loop(att, torch, np, tmp)
@@ -1956,6 +2308,9 @@ def main() -> None:
             f"{cf['fp32_fwd_rel']:.3e} of max|out| (limit "
             f"{cf['fp32_fwd_bound']:.3e}) | {smi}"))
         print("  cfg " + json.dumps(cf), flush=True)
+        # The tools phase exports the loop's last checkpoint.
+        loop_ckpt = tools_tmp / "loop_ckpt"
+        shutil.move(lp["last_checkpoint"], loop_ckpt)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2026,6 +2381,44 @@ def main() -> None:
         f"and at world 2-4 on the CPU); two ranks on one card are no scaling "
         f"figure | {smi}"))
 
+    # ---------------------------------------------------------------- tools
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        tl = phase_tools(np, tools_tmp, loop_ckpt)
+    finally:
+        shutil.rmtree(tools_tmp, ignore_errors=True)
+    for name in ("bench_sample", "bench_train", "bench_attn"):
+        for note in tl[name]["notes"]:
+            print("  " + note, flush=True)
+        for line in tl[name].get("lines", [tl[name].get("line")]):
+            print("  " + json.dumps(line), flush=True)
+    sample, train_b = tl["bench_sample"], tl["bench_train"]
+    ev_res, committed = tl["eval"]["results"], tl["eval"]["committed"]
+    print("  tools " + json.dumps({k: v for k, v in tl.items()
+                                   if not k.startswith("bench")}), flush=True)
+    phase_done("tools", t0, (
+        f"bench: DDIM-{BENCH_DDIM_STEPS} 256² batch 16 bf16 "
+        f"{sample['line']['value']} img/s (runs "
+        f"{[round(x, 3) for x in sample['record']['wall_s']]} s, "
+        f"{sample['record']['launches_per_run']:.0f} launches a run, one "
+        f"U-Net call {sample['record']['unet_call_device_ms']} ms on the "
+        f"card), train {train_b['line']['value']} steps/s, "
+        + ", ".join(f"{ln['metric'].split(' (')[0]} {ln['value']}"
+                    for ln in tl["bench_attn"]["lines"])
+        + "; eval_flagship (r5 npz, DPM++2M-5, 73 val a domain) "
+        + ", ".join(f"{d} PSNR {r['psnr']} SSIM {r['ssim']} (committed "
+                    f"{committed[d]['psnr']} / {committed[d]['ssim']})"
+                    for d, r in ev_res.items())
+        + f"; rescore, preview grid, sweep (ddim:15, dpm++2m:5), export "
+        f"({tl['export']['sidecar']['subtree']}) + eval, "
+        + ", ".join(f"{n} rc {tl[n]['rc']} {tl[n]['seconds']:.1f}s"
+                    for n in DEMO_ARGV)
+        + f"; seconds " + ", ".join(
+            f"{n} {tl[n]['seconds']:.1f}" for n in
+            ("bench_sample", "bench_train", "bench_attn", "eval", "rescore",
+             "preview_grid", "sweep", "export")) + f" | {smi}"))
+
     # Each kernel at the shape the serve phase gave it, with its launches
     # there: bf16 in the bf16 calls, fp32 in the full-precision request.
     # The bf16 kernel also carries its launches in the train phase and its
@@ -2050,22 +2443,21 @@ def main() -> None:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "bench_launches": (tl["bench_launches"]
+                               if row["kernel"] == "attention_fwd" else
+                               dict(sample=0, train=0, attn=0)),
             "train_launches": (train["launches"]
                                if row["kernel"] == "attention_fwd" else 0),
             "loop_launches": (lp["launches"]
                               if row["kernel"] == "attention_fwd" else 0),
             "eval_launches": (ev["launches"]
                               if row["kernel"] == "attention_fwd" else 0),
-            "fwd_bwd_shape": [g["B"], g["N"], g["h"], g["d"]],
-            "fwd_bwd_ms": g["fwd_bwd_ms"],
-            "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],
-            "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"],
-            "grad_max_abs_err": g["grad_max_abs_err"],
+            **fwd_bwd_fields(g),
         })
     # The bf16 kernel at the four CFG shapes, with its launches there in the
     # cfg phase's evaluate_cfg run.
     for case in CFG_CASES:
-        row = rows[case]
+        row, g = rows[case], grad_rows[case[:5]]
         kernels.append({
             "name": row["kernel"],
             "shape": [row["B"], row["N"], row["h"], row["d"]],
@@ -2079,9 +2471,11 @@ def main() -> None:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            **fwd_bwd_fields(g),
         })
     # The bf16 kernel on the head-sharded shape, with its launches in the
     # parallel phase's TP steps (both ranks).
+    g = grad_rows[TP_CASE[:5]]
     kernels.append({
         "name": tp_row["kernel"],
         "shape": [tp_row["B"], tp_row["N"], tp_row["h"], tp_row["d"]],
@@ -2095,6 +2489,7 @@ def main() -> None:
         "bound_ms": tp_row["bound_ms"],
         "bound_by": tp_row["bound_by"],
         "library_ms": tp_row["library_ms"],
+        **fwd_bwd_fields(g),
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

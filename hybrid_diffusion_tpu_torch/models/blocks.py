@@ -105,8 +105,9 @@ class SpatialSelfAttention(nn.Module):
 class ResBlock(nn.Module):
     """GN → SiLU → Conv3 | + temb | + cemb | GN → SiLU → Dropout → Conv3 |
     + shortcut, then, with `attn`, spatial attention that REPLACES h (no
-    residual, as in the reference). GroupNorm runs in fp32 and its SiLU
-    output is cast to the compute dtype.
+    residual, as in the reference). GroupNorm runs in fp32 and returns
+    `norm_dtype` (fp32 by default); its SiLU output is cast to the compute
+    dtype.
 
     Dropout runs only when the caller passes a generator (the model does in
     train mode): where(mask, h/keep, 0), the mask drawn from that generator.
@@ -118,17 +119,18 @@ class ResBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, tdim: int, attn: bool = False,
                  num_heads: int = 8, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0, remat: bool = False):
+                 dropout: float = 0.0, remat: bool = False,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.out_ch = out_ch
         self.dropout = dropout
         self.remat = remat
-        self.norm1 = GroupNorm32(in_ch)
+        self.norm1 = GroupNorm32(in_ch, norm_dtype)
         self.conv1 = Conv(in_ch, out_ch, 3, dtype)
         self.temb_proj = Dense(tdim, out_ch, dtype)
         self.cemb_proj = Dense(tdim, out_ch, dtype)
-        self.norm2 = GroupNorm32(out_ch)
+        self.norm2 = GroupNorm32(out_ch, norm_dtype)
         self.conv2 = Conv(out_ch, out_ch, 3, dtype)
         self.shortcut = Conv(in_ch, out_ch, 1, dtype) if in_ch != out_ch else None
         self.attn = (SpatialSelfAttention(out_ch, num_heads, dtype)

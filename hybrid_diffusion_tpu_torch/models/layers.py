@@ -2,7 +2,8 @@
 
 flax keeps fp32 parameters and casts them, and the input, to the layer's
 compute `dtype` at every call; these do the same. GroupNorm computes in fp32
-whatever its input (the JAX model's `norm_dtype`).
+whatever its input and returns its `out_dtype` (the JAX model's
+`norm_dtype`).
 """
 
 from __future__ import annotations
@@ -62,11 +63,21 @@ def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm(32 groups, eps 1e-5) computed in fp32; returns fp32."""
+    """GroupNorm(32 groups, eps 1e-5) computed in fp32, its result rounded
+    once to `out_dtype`, as flax's GroupNorm(dtype=norm_dtype) does.
 
-    def __init__(self, channels: int):
+    An input already in `out_dtype` goes through one kernel, which computes
+    in fp32 inside (PyTorch's accumulate type) and takes the affine weights
+    in the input's dtype: for bf16, a weight that is not a bf16 value (an
+    fp32 master) is rounded to one before use."""
+
+    def __init__(self, channels: int, out_dtype: torch.dtype = torch.float32):
         super().__init__(32, channels, eps=1e-5)
+        self.out_dtype = out_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.out_dtype:
+            return F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), self.eps)
         return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                            self.eps)
+                            self.eps).to(self.out_dtype)

@@ -11,6 +11,9 @@ same topology and parameter names:
     reference's topology) and nearest-resized to h's size;
   - tail: GroupNorm → SiLU → Conv → 3, the conv in fp32.
 
+Every GroupNorm computes in fp32 and returns `norm_dtype`: fp32 by default,
+as in the JAX model; the bench asks for bf16, as the JAX bench does.
+
 The forward takes and returns NHWC, like the JAX model; inside it is NCHW.
 `train=True` turns dropout on, its masks drawn from the caller's generator.
 Training routes the middle blocks by domain with `domain_gates_from_batch`.
@@ -71,14 +74,16 @@ class DynamicUNet(nn.Module):
                  ch_mult: Sequence[int] = (1, 2, 2, 2),
                  num_res_blocks: int = 2, num_heads: int = 8,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 remat: bool = False, torch_pad: bool = False):
+                 remat: bool = False, torch_pad: bool = False,
+                 norm_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.dtype = dtype
         self.dropout = dropout
         tdim = ch * 4
-        block = dict(tdim=tdim, dtype=dtype, dropout=dropout, remat=remat)
+        block = dict(tdim=tdim, dtype=dtype, dropout=dropout, remat=remat,
+                     norm_dtype=norm_dtype)
         self.time_embedding = TimeEmbedding(T, ch, tdim, dtype)
         self.cond_embedding = ImageConditionEmbedding(ch, tdim, dtype)
         self.head = Conv(6, ch, 3, dtype)
@@ -114,7 +119,7 @@ class DynamicUNet(nn.Module):
                 self.add_module(f"upsample_{i}",
                                 UpSample(now_ch, dtype, torch_pad))
 
-        self.tail_norm = GroupNorm32(now_ch)
+        self.tail_norm = GroupNorm32(now_ch, norm_dtype)
         self.tail_conv = Conv(now_ch, 3, 3, torch.float32)
         nn.init.xavier_uniform_(self.tail_conv.weight, gain=1e-5)
         nn.init.zeros_(self.tail_conv.bias)
