@@ -10,11 +10,13 @@ From a clean checkout, with no arguments, it:
             cuDNN, so that every fp32 number below is full fp32;
   2. build  compiles the CUDA attention kernels with nvcc (or reuses the
             library built from the same source) and loads them; prints each
-            of the 11 kernel instances' (bf16, fp16 at d 16, 32, 64; fp32
-            at d 16 and 32 with one and two m16 tiles a warp, and at d 64)
-            registers and spills (ptxas) and its count of HMMA
-            (tensor-core) instructions (cuobjdump -sass), and fails if one
-            has none or spills;
+            of the 23 tensor-core kernel instances' (the forward, the
+            forward that writes the lse and the backward, each in bf16 and
+            fp16 at d 16, 32, 64; fp32 at d 16 and 32 with one and two m16
+            tiles a warp, and at d 64) registers and spills (ptxas) and its
+            count of HMMA (tensor-core) instructions (cuobjdump -sass), and
+            fails if one has none or spills, or if the backward's pre-pass
+            or dQ conversion spills;
   3. kernel holds the kernels against their plain PyTorch version on the
             card at the shapes the serve, path, train, loop, eval and cfg
             phases give them (the loop's probe at its own batch, 9; the CFG
@@ -56,8 +58,9 @@ From a clean checkout, with no arguments, it:
             on a random-init ViT-S at 252², dropout 0.15, domain routing,
             EMA 0.99875, lr 1e-5, warm-started from the r5 npz) on numpy
             batches that alternate blue- and red-heavy; each step must give
-            finite losses, launch the bf16 kernel 4 times and no other
-            kernel, and leave the gated-off middle blocks' parameters and
+            finite losses, launch the bf16 forward and backward kernels 4
+            times each and no other, and leave the gated-off middle blocks'
+            parameters and
             AdamW moments bit for bit as they were while the open ones move;
             prints the median step time after the first, the peak memory
             and the card's nvidia-smi line;
@@ -73,7 +76,8 @@ From a clean checkout, with no arguments, it:
             16, bf16, the default loss with DINO, EMA 0.99875, lr 1e-5, the
             r5 warm start, one epoch a stage, the probe and a save every
             epoch, checkpoints and the export in a temporary directory it
-            removes): every step 4 bf16 launches and finite losses, its
+            removes): every step 4 bf16 forward and 4 backward launches and
+            finite losses, its
             batch and every parameter on the card, every probe call (DPM++2M-
             15) 60 launches, eval_curve.jsonl rows for both domains and
             stages, the stage-final checkpoints and the export's sidecar;
@@ -88,7 +92,8 @@ From a clean checkout, with no arguments, it:
             fid_block_s (the host's waits on the card);
   12. cfg   train_cfg at CFGConfig() (batch 80, 32², ch 128, mult
             (1, 2, 2, 2), 2 res blocks, T 500, bf16, the synthetic labeled
-            set) for CFG_TRAIN_STEPS steps, 21 launches each, then
+            set) for CFG_TRAIN_STEPS steps, 21 forward and 21 backward
+            launches each (5 / 5 / 5 / 6 by shape at batch 80), then
             evaluate_cfg from its checkpoint over the whole T = 500 chain at
             w 1.8 on the 10 × 8 label grid: 500 calls of 2B = 160, each with
             21 launches, 5 / 5 / 5 / 6 at (N, d) = (1024, 16), (256, 32),
@@ -101,7 +106,8 @@ From a clean checkout, with no arguments, it:
             injected noise within DDPM_STEP_RTOL;
   14. vgg   VGG_STEPS flagship-width bf16 steps (batch 16) under the
             run-book's stage-1 loss set (vgg 1, charbonnier 1, the rest 0)
-            with vgg16 at random init: 4 launches a step, finite losses;
+            with vgg16 at random init: 4 forward and 4 backward launches
+            a step, finite losses;
             prints the step time and peak memory;
   15. parallel  in spawned processes (this one holds no process group):
             one rank over NCCL on cuda:0 runs cli train --zero1 at the
@@ -112,7 +118,8 @@ From a clean checkout, with no arguments, it:
             ranks share cuda:0: a DDP step (mesh 2×1, global batch 16 at
             256², bf16, the default loss with DINO and MS-SSIM, dropout 0),
             a TP step (mesh 1×2, batch 8: the kernel on 4 heads) and a
-            ZeRO-1 step, each held against one process on the same batch,
+            ZeRO-1 step (the forward and backward kernels 8 times each a
+            rank), each held against one process on the same batch,
             t and noise (loss and gradient norm within PAR_BF16_RTOL), the
             three again in fp32 at 64² (loss within TRAIN_LOSS_RTOL, the
             first update's gradients within max(TRAIN_GRAD_FLOOR, 10 κ)),
@@ -126,9 +133,11 @@ From a clean checkout, with no arguments, it:
             hybrid_diffusion_tpu_torch...., as a user starts it): the bench
             at the flagship width (DDIM-100 sampling at 256², batch 16,
             bf16, BENCH_REPS 2: one JSON line, a finite positive img/s, 400
-            attention launches a run; BENCH_MODE=train, BENCH_REPS 3: 4
-            launches a step; BENCH_MODE=attn: four lines, the kernel arm
-            launching, the plain arm not), its JSON and `#` lines printed;
+            attention launches a run, no backward; BENCH_MODE=train,
+            BENCH_REPS 3: 4 forward and 4 backward launches a step;
+            BENCH_MODE=attn: four lines, the kernel arm launching, its
+            forward + backward the backward kernel too, the plain arm
+            nothing), its JSON and `#` lines printed;
             eval_flagship at the committed operating point
             (flagship256_r5_dpm5_eval.json's argv: the r5 npz, DPM++2M-5,
             73 val images a domain), its PSNR/SSIM printed beside the
@@ -144,19 +153,24 @@ From a clean checkout, with no arguments, it:
             traceback, and the verdict's keys in its JSON); all but the
             bench run at once.
 
-The kernel phase also holds the attention's forward and gradients (the
-kernel's forward inside the autograd Function, the backward recomputed
-through the plain version) against the plain version's at the training
-shape (16, 1024, 8, 32) in bf16 and at (2, 64, 8, 32) in fp32, and at the
-four CFG shapes and the head-sharded one in bf16, on strided views of one
-packed projection, and times forward + backward against
-scaled_dot_product_attention's.
+The kernel phase also holds the attention's forward and gradients through
+the autograd Function, on strided views of one packed projection: in bf16
+(the forward kernel's lse instance and the backward kernel) against the
+fp32 plain version's autograd within the ops module's BWD_RTOL at the
+training paths' shapes (the flagship step's (16, 1024, 8, 32), the CFG
+step's four at batch 80, the head-sharded (8, 1024, 4, 32)), at the CFG
+sampler's four at 2B = 160 and at three ragged N = 1000 cases (bf16 and
+fp16 at d 32, and fp16 on mask-trap inputs at d 64); in fp32 (the fp32 kernel, the backward recomputed through
+the plain version) against the plain version's at (2, 64, 8, 32). It times
+forward + backward against scaled_dot_product_attention's, and the backward
+kernel alone against its plain twin and SDPA's backward alone.
 
 Every phase prints one line with its seconds. The whole run must finish
 within BUDGET_S; a phase that fails or ends past the budget stops the run
 with a non-zero exit. The last lines are the kernels' JSON record (the
 bf16 kernel's serve-shape row carries the bench's launches beside the serve
-phase's, by mode, under bench_launches), the card's nvidia-smi line and
+phase's, by mode, under bench_launches; the backward kernel has a row at
+each training path's shape), the card's nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
@@ -243,23 +257,23 @@ KERNEL_CASES = [
     (2, 256, 8, 16, "float16", "randn"),
 ]
 
-# The attention's training shapes: the train phase's flagship (256², batch
-# 16: N 32·32) in bf16, and the tparity phase's fp32 (64², batch 2: N 8·8).
-# The Function's forward is the kernel's, held against the fp32 plain
-# version at ATOL; its gradients against the plain version's autograd at the
-# same dtype: its backward IS the plain version's, at the saved inputs, so
-# they agree but for the order the card sums in (0 measured on the CPU).
-TRAIN_GRAD_CASES = [TRAIN_CASE[:5], (2, 64, 8, 32, "float32")]
-GRAD_RTOL = {"bfloat16": 2.0 ** -8, "float32": 1e-6}
-# The reverse mode also runs at the CFG shapes (the cfg phase's train step,
-# at its batch 80: 2B = 160 is the sampler's) and the head-sharded one (the
-# parallel phase's TP step): the same checks and times there, the forward
-# at the CFG shapes within CFG_RTOL of max|out| as in the kernel phase.
+# The fp32 reverse mode's gradient case: the tparity phase's shape (64²,
+# batch 2: N 8·8). Its Function's forward is the fp32 kernel, its backward
+# the plain version's autograd at the saved inputs, so its gradients agree
+# with the plain version's but for the order the card sums in (0 measured on
+# the CPU): within GRAD_RTOL of each gradient's largest value. GRAD_RTOL
+# serves this recomputed fp32 path only; bf16 and fp16 have the backward
+# kernel (att.BWD_RTOL, in ops/attention.py).
+FP32_GRAD_CASE = (2, 64, 8, 32, "float32", "randn")
+GRAD_RTOL = {"float32": 1e-6}
 
 # The train phase's steps (the first one warms up and is left out of the
 # median); its settings are profile_train.py's FINE_TUNE: batch 16, the r5
 # flagship's EMA decay and warm-start lr, dropout 0.15.
 TRAIN_STEPS = 5
+# A flagship bf16 training step (the 4 middle blocks' attention): the
+# forward kernel (its lse instance) and the backward kernel 4 times each.
+TRAIN_STEP_LAUNCHES = {"attention_fwd": 4, "attention_bwd": 4}
 # The tparity phase's bounds. The loss: fp32 summed in another order (the
 # CPU tests hold the port's loss to JAX's at 1e-5). The gradients: ten times
 # κ, the change of the CPU step's gradients when every weight moves by one
@@ -288,13 +302,39 @@ CFG_TRAIN_STEPS = 4
 CFG_BATCH = 160
 CFG_SHAPES = {(1024, 16): 5, (256, 32): 5, (64, 32): 5, (16, 32): 6}
 CFG_CASES = [(CFG_BATCH, N, 8, d, "bfloat16", "randn") for N, d in CFG_SHAPES]
-GRAD_SHAPE_CASES = [c[:5] for c in CFG_CASES] + [TP_CASE[:5]]
 # Their tolerance is relative to the largest output: at N 16 the outputs
 # reach about 2.2 (an average of 16 values), where half a unit in bf16's
 # last place is 2^-8, not the 0.03-0.07 of N 1024 that ATOL was set for.
 # The CPU emulation of the kernel errs by at most 3.4e-3 of max|out| at
 # these shapes (tests/test_torch_cfg.py); 2^-6 is 4.6 times that.
 CFG_RTOL = 2.0 ** -6
+# The backward kernel (bf16/fp16) at the shapes the training paths give it:
+# the train phase's flagship step, the cfg phase's train step (batch 80,
+# its four (N, d)) and the parallel phase's TP step (4 heads); at the CFG
+# sampler's 2B = 160 (forward + backward against SDPA's, as before the
+# backward kernel); and three ragged N = 1000 cases: bf16 and fp16 at d 32,
+# and fp16 at d 64 on mask-trap inputs, where a padded key that kept its P
+# (about 2^33, past fp16's range) or a query past N that read another row's
+# lse would make the gradients non-finite. Each is held against the fp32
+# plain version's autograd (and the forward at ATOL, or CFG_RTOL at the CFG
+# shapes), within att.BWD_RTOL (ops/attention.py, derived there from the
+# kernel's CPU emulation) of each gradient's largest value
+# (att.grad_rel_err); on the mask trap, of the largest of the three. There
+# every key shares a component of −30/√d along q, so dQ = Σ dS·K is a
+# near-cancellation, and FA2's D = rowsum(dO∘O), from the output rounded to
+# the input type, leaks its rounding times that shared key into dQ (the CPU
+# emulation errs by 1.65 of max|dQ| in fp16, as does the plain twin; the
+# input-dtype plain autograd, which sums P∘dP, by 5e-3). So the mask trap
+# shows finite gradients and masked padded keys, and the fp16 random case
+# holds fp16's dQ to its own scale.
+CFG_TRAIN_BATCH = 80
+CFG_TRAIN_CASES = [(CFG_TRAIN_BATCH, N, 8, d, "bfloat16", "randn")
+                   for N, d in CFG_SHAPES]
+RAGGED_GRAD_CASES = [(4, 1000, 8, 32, "bfloat16", "randn"),
+                     (4, 1000, 8, 32, "float16", "randn"),
+                     (2, 1000, 8, 64, "float16", "mask trap")]
+KERNEL_GRAD_CASES = ([TRAIN_CASE] + CFG_TRAIN_CASES + CFG_CASES + [TP_CASE]
+                     + RAGGED_GRAD_CASES)
 # The cfg phase's card-vs-CPU fp32 forward (batch 4, the trained weights):
 # within max(CFG_FWD_FLOOR, 10 κ) of max|CPU|, κ the CPU forward's own
 # change when every weight moves by one ulp.
@@ -380,10 +420,14 @@ def phase_build(att, cuda_build):
         if n_hmma == 0 or res.spill_bytes:
             fail(f"{name}<{dtype}, {d}> has {n_hmma} HMMA instructions "
                  f"and spills {res.spill_bytes} bytes")
-    if tensor_core != 11:
+    if tensor_core != 23:
         fail(f"found {tensor_core} tensor-core kernel instances in ptxas's "
-             f"report, expected 11 (bf16, fp16 at d 16, 32, 64; fp32 twice "
-             f"at d 16 and 32, once at d 64)")
+             f"report, expected 23 (the forward, the forward with lse and "
+             f"the backward in bf16 and fp16 at d 16, 32, 64; fp32 twice at "
+             f"d 16 and 32, once at d 64)")
+    for sym, res in sorted(resources.items()):
+        if "attention_bwd_" in sym and res.spill_bytes:
+            fail(f"{sym} spills {res.spill_bytes} bytes")
     return built
 
 
@@ -463,18 +507,32 @@ def phase_kernel(att, torch, device_ms, host_ms):
 
 
 def phase_grad(att, torch, device_ms):
-    """The attention's gradients through the autograd Function against the
-    plain version's autograd, and forward + backward timed against SDPA's,
-    at the training shapes; returns rows by (B, N, h, d, dtype)."""
+    """The attention's gradients through the autograd Function, on strided
+    views of one packed projection: bf16/fp16 (the forward and backward
+    kernels) against the fp32 plain version's autograd at KERNEL_GRAD_CASES,
+    fp32 (the recomputed backward) against the plain version's at
+    FP32_GRAD_CASE. Times forward + backward against SDPA's, and the
+    backward kernel alone against its plain twin and SDPA's backward alone
+    (its forward once, then the backward with retain_graph). Returns rows by
+    case."""
+    import numpy as np
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
     rows = {}
-    for B, N, h, d, dname in TRAIN_GRAD_CASES + GRAD_SHAPE_CASES:
+    for case in [FP32_GRAD_CASE] + KERNEL_GRAD_CASES:
+        if case in rows:
+            continue
+        B, N, h, d, dname, inputs = case
         dtype = getattr(torch, dname)
-        qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen)
+        if inputs == "randn":
+            qkv = torch.randn(B, N, 3, h, d, device="cuda", generator=gen)
+        else:
+            qkv = torch.from_numpy(mask_trap_qkv(rng, B, N, h, d)).cuda()
         qkv = qkv.to(dtype).requires_grad_()
         g = torch.randn(B, N, h, d, device="cuda", generator=gen).to(dtype)
+        kernel_bwd = dtype in att.BACKWARD_DTYPES
 
         def kernel_fwd_bwd():
             out = att.fused_spatial_attention(*qkv.unbind(2))
@@ -489,48 +547,104 @@ def phase_grad(att, torch, device_ms):
             out = F.scaled_dot_product_attention(q, k, v)
             return out, torch.autograd.grad(out, qkv, g.transpose(1, 2))[0]
 
-        before = att.launch_count
+        before = dict(att.launch_counts)
         out, grad = kernel_fwd_bwd()
         torch.cuda.synchronize()
-        if att.launch_count != before + 1:
-            fail(f"forward + backward launched the kernel "
-                 f"{att.launch_count - before} times, expected once")
+        launched = {k: n - before[k] for k, n in att.launch_counts.items()
+                    if n != before[k]}
+        want = {att.KERNEL_BY_DTYPE[dtype]: 1}
+        if kernel_bwd:
+            want[att.BACKWARD_KERNEL] = 1
+        if launched != want:
+            fail(f"forward + backward at {case} launched {launched}, "
+                 f"expected {want}")
         with torch.no_grad():
             fwd_ref = att.attention_reference(
                 *qkv.detach().float().unbind(2))
         fwd_err = (out.detach().float() - fwd_ref).abs().max().item()
         fwd_tol = (CFG_RTOL * fwd_ref.abs().max().item()
-                   if (B, N, h, d, dname, "randn") in CFG_CASES
-                   else ATOL[dname, "randn"])
+                   if (N, d) in CFG_SHAPES and dname == "bfloat16"
+                   else ATOL[dname, inputs])
         if not math.isfinite(fwd_err) or fwd_err > fwd_tol:
             fail(f"the Function's forward (the kernel) disagrees with the "
-                 f"fp32 plain version at B={B} N={N} h={h} d={d} {dtype}: "
-                 f"max_abs_err {fwd_err} > {fwd_tol}")
-        _, ref = plain_fwd_bwd()
-        err = (grad.float() - ref.float()).abs().max().item()
-        tol = GRAD_RTOL[dname] * ref.float().abs().max().item()
-        if not math.isfinite(err) or err > tol:
-            fail(f"attention gradients through the kernel disagree with the "
-                 f"plain version's at B={B} N={N} h={h} d={d} {dtype}: "
-                 f"max_abs_err {err} > {tol}")
+                 f"fp32 plain version at {case}: max_abs_err {fwd_err} > "
+                 f"{fwd_tol}")
         x32 = qkv.detach().float().requires_grad_()
         _, ref32 = plain_fwd_bwd(x32, g.float())
-        err32 = (grad.float() - ref32).abs().max().item()
-        flops = 12.0 * B * h * N * N * d    # forward 4, its vjp 8
-        nbytes = 8.0 * B * N * h * d * qkv.element_size()
-        t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
-        row = dict(B=B, N=N, h=h, d=d, dtype=dname,
+        _, ref_same = plain_fwd_bwd()
+        common = inputs == "mask trap"
+        rel32 = att.grad_rel_err(grad.unbind(2), ref32.unbind(2), common)
+        rel_same = att.grad_rel_err(grad.unbind(2), ref_same.unbind(2),
+                                    common)
+        _, sdpa_grad = sdpa_fwd_bwd()
+        err, tol = ((rel32, att.BWD_RTOL[dname, inputs]) if kernel_bwd
+                    else (rel_same, GRAD_RTOL[dname]))
+        if not math.isfinite(err) or err > tol:
+            fail(f"attention gradients through the kernel{'s' * kernel_bwd} "
+                 f"disagree with the plain version's at {case}: "
+                 f"grad_rel_err {err} > {tol}")
+        row = dict(B=B, N=N, h=h, d=d, dtype=dname, inputs=inputs,
                    fwd_max_abs_err=fwd_err, fwd_tol=fwd_tol,
-                   grad_max_abs_err=err, grad_tol=tol,
-                   grad_max_abs_err_vs_fp32=err32,
-                   fwd_bwd_ms=device_ms(kernel_fwd_bwd, reps=15, inner=5),
-                   plain_fwd_bwd_ms=device_ms(plain_fwd_bwd, reps=5, inner=2),
-                   sdpa_fwd_bwd_ms=device_ms(sdpa_fwd_bwd, reps=15, inner=5),
-                   fwd_bwd_bound_ms=max(t_ops, t_bytes) * 1e3,
-                   fwd_bwd_bound_by="operations" if t_ops >= t_bytes
-                   else "bytes")
+                   grad_rel_err=err, grad_tol=tol,
+                   grad_rel_err_vs_fp32=rel32,
+                   grad_rel_err_vs_same_dtype=rel_same,
+                   sdpa_grad_rel_err_vs_fp32=att.grad_rel_err(
+                       sdpa_grad.unbind(2), ref32.unbind(2), common),
+                   grad_max_abs_err=(grad.float() - ref32).abs().max().item())
+        timed = case not in RAGGED_GRAD_CASES
+        if kernel_bwd:
+            # The backward kernel alone, on the forward's own out and lse;
+            # twice, for the run-to-run spread of dQ's atomic sums.
+            q, k, v = qkv.detach().unbind(2)
+            o, lse = att.attention_forward_lse(q, k, v)
+            grads = att.attention_backward(q, k, v, o, lse, g)
+            again = att.attention_backward(q, k, v, o, lse, g)
+            twin = att.attention_backward_reference(q, k, v, o, lse, g)
+            row.update(
+                twin_rel_err=att.grad_rel_err(grads, twin, common),
+                dq_spread=(grads[0] - again[0]).float().abs().max().item(),
+                dq_spread_rel=att.grad_rel_err(again[:1], grads[:1]),
+                dkdv_equal=all(torch.equal(a, b) for a, b in
+                               zip(grads[1:], again[1:])))
+            if timed:
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                s_out = F.scaled_dot_product_attention(qt, kt, vt)
+                gt = g.transpose(1, 2)
+                # The function's inputs are q, k, v, out, lse and dout: it
+                # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each).
+                flops = 10.0 * B * h * N * N * d
+                nbytes = (8.0 * B * N * h * d * q.element_size()
+                          + 4.0 * B * h * N)
+                t_ops = flops / PEAK_FLOPS[dname]
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                row.update(
+                    bwd_ms=device_ms(lambda: att.attention_backward(
+                        q, k, v, o, lse, g), reps=15, inner=5),
+                    plain_bwd_ms=device_ms(
+                        lambda: att.attention_backward_reference(
+                            q, k, v, o, lse, g), reps=5, inner=2),
+                    sdpa_bwd_ms=device_ms(lambda: torch.autograd.grad(
+                        s_out, (qt, kt, vt), gt, retain_graph=True),
+                        reps=15, inner=5),
+                    bwd_bound_ms=max(t_ops, t_bytes) * 1e3,
+                    bwd_bound_by="operations" if t_ops >= t_bytes
+                    else "bytes",
+                    bwd_exp_floor_ms=B * h * N * N / EXP_PER_S * 1e3)
+                del s_out
+        if timed:
+            flops = 12.0 * B * h * N * N * d    # forward 4, its vjp 8
+            nbytes = 8.0 * B * N * h * d * qkv.element_size()
+            t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
+            row.update(
+                fwd_bwd_ms=device_ms(kernel_fwd_bwd, reps=15, inner=5),
+                plain_fwd_bwd_ms=device_ms(plain_fwd_bwd, reps=5, inner=2),
+                sdpa_fwd_bwd_ms=device_ms(sdpa_fwd_bwd, reps=15, inner=5),
+                fwd_bwd_bound_ms=max(t_ops, t_bytes) * 1e3,
+                fwd_bwd_bound_by="operations" if t_ops >= t_bytes
+                else "bytes")
         print("  grad " + json.dumps(row), flush=True)
-        rows[B, N, h, d, dname] = row
+        rows[case] = row
     return rows
 
 
@@ -560,7 +674,7 @@ def phase_train(att, torch, np, smi):
                                           cfg.img_size)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    seconds, losses, launches = [], [], 0
+    seconds, losses, launches, bwd_launches = [], [], 0, 0
     for i, batch in enumerate(batches):
         blue = i % 2 == 0
         closed = (1, 3) if blue else (0, 2)
@@ -578,10 +692,11 @@ def phase_train(att, torch, np, smi):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         counts = {k: n for k, n in att.launch_counts.items() if n}
-        if counts != {"attention_fwd": 4}:
+        if counts != TRAIN_STEP_LAUNCHES:
             fail(f"train step {i} launched the attention kernels {counts}, "
-                 f"expected the bf16 kernel 4 times and no other")
+                 f"expected {TRAIN_STEP_LAUNCHES}")
         launches += counts["attention_fwd"]
+        bwd_launches += counts["attention_bwd"]
         values = {k: float(v) for k, v in metrics.items()}
         if not all(math.isfinite(v) for v in values.values()):
             fail(f"train step {i} gave non-finite metrics {values}")
@@ -605,6 +720,7 @@ def phase_train(att, torch, np, smi):
     import statistics
 
     return dict(steps=len(batches), launches=launches,
+                bwd_launches=bwd_launches,
                 median_step_ms=statistics.median(seconds[1:]) * 1e3,
                 step_ms=[x * 1e3 for x in seconds],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -795,17 +911,18 @@ def phase_loop(att, torch, np, tmp: Path) -> dict:
     finally:
         rec.restore()
     loop_launches = att.launch_counts["attention_fwd"]
-    if att.launch_count != loop_launches:
+    loop_bwd_launches = att.launch_counts["attention_bwd"]
+    if att.launch_count != loop_launches + loop_bwd_launches:
         fail(f"the loop launched {att.launch_counts}, expected only the bf16 "
-             f"kernel")
+             f"kernels")
     steps = first["steps"]
     if len(steps) != 2 * steps_per_stage:
         fail(f"the first run took {len(steps)} steps, expected "
              f"{steps_per_stage} in each of two stages")
     for i, st in enumerate(steps + rec.steps):
-        if st["launches"] != {"attention_fwd": 4}:
-            fail(f"loop step {i} launched {st['launches']}, expected the bf16 "
-                 f"kernel 4 times")
+        if st["launches"] != TRAIN_STEP_LAUNCHES:
+            fail(f"loop step {i} launched {st['launches']}, expected "
+                 f"{TRAIN_STEP_LAUNCHES}")
         if not all(math.isfinite(v) for v in st["metrics"].values()):
             fail(f"loop step {i} gave non-finite metrics {st['metrics']}")
         if not (st["batch_on_cuda"] and st["params_on_cuda"]):
@@ -852,7 +969,7 @@ def phase_loop(att, torch, np, tmp: Path) -> dict:
             if a is not steps[steps_per_stage - 1]]
     periodic = [s for s in first["saves"] if "_final_" not in s["path"]]
     return dict(steps=len(steps), resumed_steps=len(rec.steps),
-                launches=loop_launches,
+                launches=loop_launches, bwd_launches=loop_bwd_launches,
                 median_step_ms=statistics.median(ms[1:]),
                 step_ms=ms, median_gap_ms=statistics.median(gaps),
                 gap_ms=gaps,
@@ -920,26 +1037,53 @@ def phase_eval(att, torch, np, tmp: Path) -> dict:
                 sampler_calls=len(rec.samples))
 
 class LaunchShapes:
-    """Tallies the attention kernel's launches by (N, d) while entered, by
-    wrapping the wrapper's launch function (which keeps its own counts)."""
+    """Tallies the attention kernels' launches by shape while entered, by
+    wrapping the wrapper's launch functions (which keep their own counts):
+    the forward's (both instances) by (B, N, h, d) in `fwd`, the
+    backward's in `bwd`."""
+
+    LAUNCHERS = ("_launch", "attention_forward_lse", "attention_backward")
 
     def __init__(self, att):
         import collections
 
-        self.att, self.real = att, att._launch
-        self.by_shape = collections.Counter()
+        self.att = att
+        self.real = {name: getattr(att, name) for name in self.LAUNCHERS}
+        self.fwd = collections.Counter()
+        self.bwd = collections.Counter()
 
     def __enter__(self):
-        def launch(q, k, v):
-            out = self.real(q, k, v)
-            self.by_shape[q.shape[1], q.shape[3]] += 1
-            return out
+        def wrap(name, real):
+            def launch(q, *args):
+                out = real(q, *args)
+                if name == "attention_backward":
+                    self.bwd[tuple(q.shape)] += 1
+                else:
+                    self.fwd[tuple(q.shape)] += 1
+                return out
 
-        self.att._launch = launch
+            return launch
+
+        for name, real in self.real.items():
+            setattr(self.att, name, wrap(name, real))
         return self
 
     def __exit__(self, *exc):
-        self.att._launch = self.real
+        for name, real in self.real.items():
+            setattr(self.att, name, real)
+
+    def fwd_by_n_d(self) -> dict:
+        """{(N, d): launches} of the forward."""
+        counts: dict = {}
+        for (_, n, _, d), c in self.fwd.items():
+            counts[n, d] = counts.get((n, d), 0) + c
+        return counts
+
+    @staticmethod
+    def named(counter) -> dict:
+        """{"B8 N1024 h4 d32": launches} of a (B, N, h, d) counter."""
+        return {f"B{b} N{n} h{h} d{d}": c for (b, n, h, d), c in
+                counter.items()}
 
 
 def phase_http(att, torch, np, Enhancer, flagship_config) -> dict:
@@ -1070,12 +1214,14 @@ def phase_cfg(att, torch, np, tmp: Path) -> dict:
 
         def timed(state, batch, generator):
             torch.cuda.synchronize()
-            before = att.launch_count
+            before = dict(att.launch_counts)
             t0 = time.perf_counter()
             state, metrics = step(state, batch, generator)
             loss = float(metrics["loss"])
-            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                              launches=att.launch_count - before, loss=loss))
+            steps.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                launches={k: n - before[k] for k, n in
+                          att.launch_counts.items() if n != before[k]}))
             return state, metrics
 
         return timed
@@ -1092,7 +1238,8 @@ def phase_cfg(att, torch, np, tmp: Path) -> dict:
     cfg_train.make_cfg_train_step, cfg_train.cfg_ddpm_sample = make_step, sample
     try:
         torch.cuda.reset_peak_memory_stats()
-        summary = cfg_train.train_cfg(config, max_steps=CFG_TRAIN_STEPS)
+        with LaunchShapes(att) as train_shapes:
+            summary = cfg_train.train_cfg(config, max_steps=CFG_TRAIN_STEPS)
         train_gib = torch.cuda.max_memory_allocated() / 2**30
         ckpt = summary["checkpoints"][-1]
         del summary
@@ -1110,21 +1257,28 @@ def phase_cfg(att, torch, np, tmp: Path) -> dict:
     finally:
         cfg_train.make_cfg_train_step = real_step
         cfg_train.cfg_ddpm_sample = real_sample
+    step_launches = {"attention_fwd": 21, "attention_bwd": 21}
     if len(steps) != CFG_TRAIN_STEPS or any(
-            st["launches"] != 21 or not math.isfinite(st["loss"])
+            st["launches"] != step_launches or not math.isfinite(st["loss"])
             for st in steps):
         fail(f"train_cfg steps {steps}: expected {CFG_TRAIN_STEPS} finite "
-             f"steps of 21 launches")
+             f"steps of {step_launches} launches")
+    want = {case[:4]: CFG_TRAIN_STEPS * CFG_SHAPES[case[1], case[3]]
+            for case in CFG_TRAIN_CASES}
+    if dict(train_shapes.fwd) != want or dict(train_shapes.bwd) != want:
+        fail(f"train_cfg launched the forward by shape "
+             f"{dict(train_shapes.fwd)} and the backward by shape "
+             f"{dict(train_shapes.bwd)}, expected each {want}")
     n_img = config.num_labels * config.nrow
     if len(calls) != config.T or any(c != (CFG_BATCH, 21) for c in calls):
         fail(f"evaluate_cfg made {len(calls)} model calls with (batch, "
              f"launches) {sorted(set(calls))}, expected {config.T} of "
              f"({CFG_BATCH}, 21)")
-    per_call = {f"N{n} d{d}": shapes.by_shape[n, d] / len(calls)
+    by_n_d = shapes.fwd_by_n_d()
+    per_call = {f"N{n} d{d}": by_n_d.get((n, d), 0) / len(calls)
                 for n, d in CFG_SHAPES}
-    if other or dict(shapes.by_shape) != {
-            k: v * len(calls) for k, v in CFG_SHAPES.items()}:
-        fail(f"evaluate_cfg launched the kernels by shape {dict(shapes.by_shape)}"
+    if other or by_n_d != {k: v * len(calls) for k, v in CFG_SHAPES.items()}:
+        fail(f"evaluate_cfg launched the kernels by shape {by_n_d}"
              f" ({other} launches of another kernel), expected per call "
              f"{CFG_SHAPES}")
     if imgs.shape != (n_img, 32, 32, 3) or imgs.dtype != np.uint8 \
@@ -1167,7 +1321,9 @@ def phase_cfg(att, torch, np, tmp: Path) -> dict:
                 eval_peak_gib=eval_gib, launches=eval_launches,
                 launches_per_call=per_call,
                 launches_by_shape={f"N{n} d{d}": c
-                                   for (n, d), c in shapes.by_shape.items()},
+                                   for (n, d), c in by_n_d.items()},
+                train_bwd_launches_by_shape=LaunchShapes.named(
+                    train_shapes.bwd),
                 fp32_fwd_rel=fwd_rel, fp32_fwd_bound=bound, kappa=kappa)
 
 
@@ -1268,7 +1424,7 @@ def phase_vgg(att, torch, np) -> dict:
                                           cfg.img_size)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    seconds, losses = [], []
+    seconds, losses, bwd_launches = [], [], 0
     for i, batch in enumerate(batches):
         att.reset_launch_count()
         torch.cuda.synchronize()
@@ -1278,15 +1434,16 @@ def phase_vgg(att, torch, np) -> dict:
         seconds.append(time.perf_counter() - t0)
         values = {k: float(v) for k, v in metrics.items()}
         counts = {k: n for k, n in att.launch_counts.items() if n}
-        if counts != {"attention_fwd": 4} or "vgg" not in values \
+        if counts != TRAIN_STEP_LAUNCHES or "vgg" not in values \
                 or "dino" in values \
                 or not all(math.isfinite(v) for v in values.values()):
             fail(f"vgg step {i}: launches {counts}, metrics {values}")
+        bwd_launches += counts["attention_bwd"]
         losses.append(values)
     return dict(steps=len(batches), step_ms=[x * 1e3 for x in seconds],
                 median_step_ms=statistics.median(seconds[1:]) * 1e3,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                losses=losses)
+                losses=losses, bwd_launches=bwd_launches)
 
 
 # ---------------------------------------------------------------- parallel
@@ -1402,6 +1559,7 @@ def _par_world1(rank, workdir, argv, steps):
         raise RuntimeError("cli train --zero1 returned non-zero")
     train_s = time.perf_counter() - t0
     launches = att.launch_counts["attention_fwd"]
+    bwd_launches = att.launch_counts["attention_bwd"]
     if not dist.is_initialized() or "nccl" not in str(dist.get_backend()):
         raise RuntimeError("train() ran without an NCCL process group")
     ckpts = sorted((tmp / "ck").iterdir())
@@ -1448,7 +1606,8 @@ def _par_world1(rank, workdir, argv, steps):
     if not torch.equal(got, sent):
         raise RuntimeError("NCCL send/recv to self lost the tensor")
     dist.destroy_process_group()
-    return dict(train_s=train_s, launches=launches, eval_s=eval_s,
+    return dict(train_s=train_s, launches=launches,
+                bwd_launches=bwd_launches, eval_s=eval_s,
                 resumed_to=state.step, ring_err=ring_err,
                 results={d: {k: r[k] for k in ("psnr", "ssim", "n_images")}
                          for d, r in results.items()},
@@ -1459,7 +1618,6 @@ def _par_rank(rank, workdir):
     """One of two gloo ranks on cuda:0: DDP (2×1), TP (1×2) and ZeRO-1
     (2×1) steps at the flagship width in bf16 and again in fp32 at 64²,
     and the sharded sampler; rank 0 also runs each against one process."""
-    import collections
     import statistics
 
     import numpy as np
@@ -1485,13 +1643,6 @@ def _par_rank(rank, workdir):
                             rank=rank, world_size=2)
     meshes = {"2x1": make_mesh(2, 1), "1x2": make_mesh(1, 2)}
     main = rank == 0
-    by_shape = collections.Counter()
-    real_launch = att._launch
-
-    def counted(q, k, v):
-        out = real_launch(q, k, v)
-        by_shape[f"B{q.shape[0]} N{q.shape[1]} h{q.shape[2]} d{q.shape[3]}"] += 1
-        return out
 
     def run(cfg, mesh, zero1, batch, t, noise, steps=1, grads=False,
             nudge=None):
@@ -1555,14 +1706,15 @@ def _par_rank(rank, workdir):
         noise = torch.from_numpy(rng.standard_normal(
             (B, flag.img_size, flag.img_size, 3)).astype(np.float32)).cuda()
         torch.cuda.reset_peak_memory_stats()
-        by_shape.clear()
-        att._launch = counted
         att.reset_launch_count()
-        got, ms = run(flag, meshes[mesh_name], zero1, batch, t, noise,
-                      steps=2)
-        att._launch = real_launch
-        rec = dict(metrics=got, step_ms=ms, launches=dict(by_shape),
+        with LaunchShapes(att) as shapes:
+            got, ms = run(flag, meshes[mesh_name], zero1, batch, t, noise,
+                          steps=2)
+        rec = dict(metrics=got, step_ms=ms,
+                   launches=LaunchShapes.named(shapes.fwd),
+                   bwd_launches=LaunchShapes.named(shapes.bwd),
                    launch_count=att.launch_counts["attention_fwd"],
+                   bwd_launch_count=att.launch_counts["attention_bwd"],
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         dist.barrier()
         if main:      # one process on the same global batch, t and noise
@@ -1653,9 +1805,10 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
     t0 = time.perf_counter()
     w1 = _par_spawn(_par_world1, 1, tmp / "w1", argv, steps)[0]
     w1["seconds"] = time.perf_counter() - t0
-    if w1["launches"] != 4 * steps:
-        fail(f"world-1 NCCL train launched the kernel {w1['launches']} "
-             f"times in {steps} steps, expected 4 a step")
+    if w1["launches"] != 4 * steps or w1["bwd_launches"] != 4 * steps:
+        fail(f"world-1 NCCL train launched the forward {w1['launches']} and "
+             f"the backward {w1['bwd_launches']} times in {steps} steps, "
+             f"expected 4 each a step")
     t0 = time.perf_counter()
     ranks = _par_spawn(_par_rank, 2, tmp / "gloo")
     seconds = time.perf_counter() - t0
@@ -1675,29 +1828,42 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
                  f"{rec['grad_rel']} (bound {r0['fp32']['grad_bound']})")
     for rank in ranks:
         for case, rec in rank["bf16"].items():
-            if rec["launch_count"] != sum(rec["launches"].values()):
+            if rec["launch_count"] != sum(rec["launches"].values()) or \
+                    rec["bwd_launch_count"] != sum(rec["bwd_launches"].values()):
                 fail(f"{case}: the wrapper counted {rec['launch_count']} "
-                     f"launches, the shapes {rec['launches']}")
+                     f"forward and {rec['bwd_launch_count']} backward "
+                     f"launches, the shapes {rec['launches']} and "
+                     f"{rec['bwd_launches']}")
     tp_shape = f"B{PAR_TP_BATCH} N1024 h4 d32"
     tp_launches = sum(r["bf16"]["tp"]["launches"].get(tp_shape, 0)
                       for r in ranks)
-    # Two steps on each rank, 4 middle blocks: 8 launches a rank on 4 heads.
-    if tp_launches != 2 * 2 * 4 or any(
-            set(r["bf16"]["tp"]["launches"]) != {tp_shape} for r in ranks):
-        fail(f"the TP steps launched {[r['bf16']['tp']['launches'] for r in ranks]}"
-             f", expected the kernel on 4 heads ({tp_shape}) 8 times a rank")
+    tp_bwd_launches = sum(r["bf16"]["tp"]["bwd_launches"].get(tp_shape, 0)
+                          for r in ranks)
+    # Two steps on each rank, 4 middle blocks: 8 launches a rank on 4 heads,
+    # of the forward and of the backward.
+    if any(r["bf16"]["tp"]["launches"] != {tp_shape: 8}
+           or r["bf16"]["tp"]["bwd_launches"] != {tp_shape: 8}
+           for r in ranks):
+        fail(f"the TP steps launched the forward "
+             f"{[r['bf16']['tp']['launches'] for r in ranks]} and the "
+             f"backward {[r['bf16']['tp']['bwd_launches'] for r in ranks]}, "
+             f"expected each on 4 heads ({tp_shape}) 8 times a rank")
     ddp_shape = f"B{PAR_BATCH // 2} N1024 h8 d32"
     for case in ("ddp", "zero1"):
-        if any(r["bf16"][case]["launches"] != {ddp_shape: 8} for r in ranks):
-            fail(f"the {case} steps launched "
-                 f"{[r['bf16'][case]['launches'] for r in ranks]}, expected "
-                 f"{{{ddp_shape!r}: 8}} a rank")
+        if any(r["bf16"][case]["launches"] != {ddp_shape: 8}
+               or r["bf16"][case]["bwd_launches"] != {ddp_shape: 8}
+               for r in ranks):
+            fail(f"the {case} steps launched the forward "
+                 f"{[r['bf16'][case]['launches'] for r in ranks]} and the "
+                 f"backward {[r['bf16'][case]['bwd_launches'] for r in ranks]}"
+                 f", expected each {{{ddp_shape!r}: 8}} a rank")
     sm = r0["sampler"]
     if sm["shape"] != [PAR_SAMPLER_IMAGES, PAR_FP32_SIZE, PAR_FP32_SIZE, 3] \
             or sm["max_levels"] > 1 or sm["share"] > PAR_SAMPLE_MAX_SHARE:
         fail(f"the sharded sampler against one process: {sm}")
     return dict(world1=w1, ranks=ranks, gloo_seconds=seconds,
-                tp_launches=tp_launches, tp_shape=tp_shape)
+                tp_launches=tp_launches, tp_bwd_launches=tp_bwd_launches,
+                tp_shape=tp_shape)
 
 
 # The tools phase: the port's bench and scripts, each a subprocess started
@@ -1826,7 +1992,8 @@ def phase_tools(np, tmp: Path, loop_ckpt: Path) -> dict:
     (record,) = run["records"]
     if line["metric"] != want:
         fail(f"tools: bench metric {line['metric']!r}, expected {want!r}")
-    if record["attention_launches"] != 4 * BENCH_DDIM_STEPS * BENCH_SAMPLE_REPS:
+    if record["attention_launches"] != 4 * BENCH_DDIM_STEPS * BENCH_SAMPLE_REPS \
+            or record["attention_bwd_launches"]:
         fail(f"tools: {BENCH_SAMPLE_REPS} DDIM-{BENCH_DDIM_STEPS} runs "
              f"launched the kernel {record['attention_launches']} times, "
              f"expected {4 * BENCH_DDIM_STEPS} a run")
@@ -1836,17 +2003,23 @@ def phase_tools(np, tmp: Path, loop_ckpt: Path) -> dict:
         BENCH_MODE="train", BENCH_REPS=str(BENCH_TRAIN_REPS)))
     (line,) = _bench_lines(run, 1, "steps/sec")
     (record,) = run["records"]
-    if record["attention_launches"] != 4 * BENCH_TRAIN_REPS:
-        fail(f"tools: {BENCH_TRAIN_REPS} train steps launched the kernel "
-             f"{record['attention_launches']} times, expected 4 a step")
+    if record["attention_launches"] != 4 * BENCH_TRAIN_REPS \
+            or record["attention_bwd_launches"] != 4 * BENCH_TRAIN_REPS:
+        fail(f"tools: {BENCH_TRAIN_REPS} train steps launched the forward "
+             f"{record['attention_launches']} and the backward "
+             f"{record['attention_bwd_launches']} times, expected 4 each a "
+             f"step")
     rec["bench_train"] = dict(line=line, record=record, notes=run["notes"],
                               seconds=run["seconds"])
     run = _run_tool("bench_attn", ["bench"], tmp, env=dict(BENCH_MODE="attn"))
     lines = _bench_lines(run, 4, "us")
     kernel_launches = sum(r["attention_launches"] for r in run["records"]
                           if r["arm"] == "kernel")
-    if any(r["attention_launches"] for r in run["records"]
-           if r["arm"] == "plain") or not kernel_launches:
+    if any(r["attention_launches"] or r["attention_bwd_launches"]
+           for r in run["records"] if r["arm"] == "plain") \
+            or not kernel_launches or not all(
+                r["attention_bwd_launches"] for r in run["records"]
+                if r["arm"] == "kernel" and r["pass_"] == "fwd+bwd"):
         fail(f"tools: the attention A/B launched {run['records']}: the plain "
              f"arm must launch no kernel, the kernel arm must")
     rec["bench_attn"] = dict(lines=lines, records=run["records"],
@@ -2016,7 +2189,34 @@ def fwd_bwd_fields(g: dict) -> dict:
             "fwd_bwd_ms": g["fwd_bwd_ms"],
             "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],
             "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"],
-            "grad_max_abs_err": g["grad_max_abs_err"]}
+            "grad_max_abs_err": g["grad_max_abs_err"],
+            "grad_rel_err": g["grad_rel_err"]}
+
+
+def backward_row(g: dict, launches: int, **extra) -> dict:
+    """A kernels-record row of the backward kernel from phase_grad's row:
+    its launches on a main path, its error against the fp32 plain
+    version's autograd, its time beside its plain twin's and SDPA's
+    backward alone."""
+    return {
+        "name": "attention_bwd",
+        "shape": [g["B"], g["N"], g["h"], g["d"]],
+        "route": "cuda",
+        "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
+        "replaces": "hybrid_diffusion_tpu/ops/attention.py:98",
+        "launches": launches,
+        "max_abs_err": g["grad_max_abs_err"],
+        "grad_rel_err": g["grad_rel_err"],
+        "grad_tol": g["grad_tol"],
+        "ms": g["bwd_ms"],
+        "plain_ms": g["plain_bwd_ms"],
+        "bound_ms": g["bwd_bound_ms"],
+        "bound_by": g["bwd_bound_by"],
+        "library_ms": g["sdpa_bwd_ms"],
+        "exp_floor_ms": g["bwd_exp_floor_ms"],
+        "dq_spread": g["dq_spread"],
+        **fwd_bwd_fields(g), **extra,
+    }
 
 
 def psnr(a, b) -> float:
@@ -2057,7 +2257,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = phase_build(att, cuda_build)
     phase_done("build", t0, f"nvcc {built.build_seconds:.2f}s, every "
-               f"kernel on HMMA with no spills")
+               f"tensor-core kernel on HMMA, no kernel spills")
 
     # ---------------------------------------------------------------- kernel
     t0 = time.perf_counter()
@@ -2239,7 +2439,8 @@ def main() -> None:
         f"{train['steps']} flagship steps (256², batch 16, bf16, "
         f"default loss with DINO): median step {train['median_step_ms']:.1f} "
         f"ms after the first, peak memory {train['peak_gib']:.2f} GiB, "
-        f"attention launches {train['launches']} (4 per step) | {smi}"))
+        f"attention launches {train['launches']} forward and "
+        f"{train['bwd_launches']} backward (4 each per step) | {smi}"))
 
     # ---------------------------------------------------------------- tparity
     t0 = time.perf_counter()
@@ -2269,7 +2470,8 @@ def main() -> None:
             f"{lp['save_gib']:.3f} GiB each, export subtree {lp['export']}; "
             f"resumed at step {lp['resumed_from']} and took "
             f"{lp['resumed_steps']} more; attention launches "
-            f"{lp['launches']} (4 a step, 60 a probe call) | {smi}"))
+            f"{lp['launches']} forward (4 a step, 60 a probe call) and "
+            f"{lp['bwd_launches']} backward (4 a step) | {smi}"))
         print("  loop " + json.dumps(lp), flush=True)
 
         # ------------------------------------------------------------ eval
@@ -2300,7 +2502,9 @@ def main() -> None:
             f"train_cfg at CFGConfig() (batch 80, 32², ch 128, T 500, bf16), "
             f"{len(cf['train_step_ms'])} steps in "
             f"{[round(x, 1) for x in cf['train_step_ms']]} ms, peak "
-            f"{cf['train_peak_gib']:.2f} GiB; evaluate_cfg (w 1.8, 10 × 8 "
+            f"{cf['train_peak_gib']:.2f} GiB, 21 forward and 21 backward "
+            f"launches a step, the backward by shape "
+            f"{cf['train_bwd_launches_by_shape']}; evaluate_cfg (w 1.8, 10 × 8 "
             f"grid, T 500): {cf['eval_calls']} calls of 2B = {CFG_BATCH} in "
             f"{cf['eval_s']:.2f}s, {cf['images_per_s']:.2f} img/s, peak "
             f"{cf['eval_peak_gib']:.2f} GiB; attention launches a call by "
@@ -2375,8 +2579,10 @@ def main() -> None:
         f"{r0['fp32']['kappa']:.1e}); sampler {r0['sampler']['max_levels']} "
         f"level(s) on {r0['sampler']['share']:.2e} of the bytes; "
         f"head-sharded kernel {par['tp_shape']}: {par['tp_launches']} "
-        f"launches, {tp_row['kernel_ms']:.5f} ms (SDPA "
-        f"{tp_row['library_ms']:.5f} ms); gloo refuses on CUDA: "
+        f"forward launches, {tp_row['kernel_ms']:.5f} ms (SDPA "
+        f"{tp_row['library_ms']:.5f} ms), {par['tp_bwd_launches']} backward "
+        f"launches, {grad_rows[TP_CASE]['bwd_ms']:.5f} ms (SDPA's backward "
+        f"{grad_rows[TP_CASE]['sdpa_bwd_ms']:.5f} ms); gloo refuses on CUDA: "
         f"{', '.join(GLOO_REFUSED_ON_CUDA)} (checked at world 1 on the card "
         f"and at world 2-4 on the CPU); two ranks on one card are no scaling "
         f"figure | {smi}"))
@@ -2425,8 +2631,8 @@ def main() -> None:
     # forward + backward at the train shape; the fp32 one, at the tparity
     # phase's shape.
     kernels = []
-    grad_of = {"attention_fwd": grad_rows[TRAIN_GRAD_CASES[0]],
-               "attention_fwd_fp32": grad_rows[TRAIN_GRAD_CASES[1]]}
+    grad_of = {"attention_fwd": grad_rows[TRAIN_CASE],
+               "attention_fwd_fp32": grad_rows[FP32_GRAD_CASE]}
     for row, n in ((rows[SERVE_CASE], launches),
                    (rows[FP32_SERVE_CASE], fp32_serve_launches)):
         g = grad_of[row["kernel"]]
@@ -2457,7 +2663,7 @@ def main() -> None:
     # The bf16 kernel at the four CFG shapes, with its launches there in the
     # cfg phase's evaluate_cfg run.
     for case in CFG_CASES:
-        row, g = rows[case], grad_rows[case[:5]]
+        row, g = rows[case], grad_rows[case]
         kernels.append({
             "name": row["kernel"],
             "shape": [row["B"], row["N"], row["h"], row["d"]],
@@ -2475,7 +2681,7 @@ def main() -> None:
         })
     # The bf16 kernel on the head-sharded shape, with its launches in the
     # parallel phase's TP steps (both ranks).
-    g = grad_rows[TP_CASE[:5]]
+    g = grad_rows[TP_CASE]
     kernels.append({
         "name": tp_row["kernel"],
         "shape": [tp_row["B"], tp_row["N"], tp_row["h"], tp_row["d"]],
@@ -2491,6 +2697,20 @@ def main() -> None:
         "library_ms": tp_row["library_ms"],
         **fwd_bwd_fields(g),
     })
+    # The backward kernel at the shapes the training paths gave it, with its
+    # launches there: the train phase's flagship steps (the loop, vgg and
+    # bench steps beside them), the cfg phase's train steps by shape, the
+    # parallel phase's TP steps (both ranks).
+    kernels.append(backward_row(
+        grad_rows[TRAIN_CASE], train["bwd_launches"],
+        loop_launches=lp["bwd_launches"], vgg_launches=vg["bwd_launches"],
+        bench_train_launches=train_b["record"]["attention_bwd_launches"]))
+    for case in CFG_TRAIN_CASES:
+        B, N, h, d = case[:4]
+        kernels.append(backward_row(
+            grad_rows[case],
+            cf["train_bwd_launches_by_shape"][f"B{B} N{N} h{h} d{d}"]))
+    kernels.append(backward_row(grad_rows[TP_CASE], par["tp_bwd_launches"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Time design variants of the fp32 attention kernel against the kept one.
+"""Time design variants of the fp32 attention kernel, or of the bf16
+backward kernel, against the kept one.
 
-    python -m hybrid_diffusion_tpu_torch.attention_variants
+    python -m hybrid_diffusion_tpu_torch.attention_variants [--backward]
 
 Each variant is `csrc/attention.cu` with a few named edits (EDITS: each old
 text must occur exactly once in the source, or the script stops). All
@@ -12,6 +13,14 @@ and timed with `utils/timing.device_ms`, in the order of VARIANTS and then
 reversed (so that each variant's two times bracket the others), beside
 `scaled_dot_product_attention` (fp32, TF32 off). Prints one JSON line per
 shape and the card's nvidia-smi line.
+
+With --backward the same for the bf16 backward (BWD_EDITS, BWD_SHAPES):
+each variant's `hd_attention_bwd` on the kept forward's output and lse,
+held against the plain twin `attention_backward_reference` within
+BWD_RTOL, except for the diagnostic variants (DIAGNOSTIC: they leave work
+out to show its cost, so their gradients are wrong and are only timed),
+beside SDPA's backward alone (its forward once, then the backward with
+retain_graph).
 """
 
 from __future__ import annotations
@@ -81,16 +90,39 @@ EDITS = {
         "  hi = __float_as_uint(h);\n  lo = __float_as_uint(x - h);\n")],
 }
 VARIANTS = {"kept": [], **{name: [name] for name in EDITS}}
+
+# Edits of the bf16/fp16 backward kernel.
+BWD_EDITS = {
+    # Diagnostic: no atomic adds of dQ (dQ stays zero; ptxas then drops
+    # dQ's products as well), to show what dQ costs.
+    "no_dq_atomics": [("      if (row < N)\n        atomicAdd(",
+                       "      if (row < 0)\n        atomicAdd("),
+                      ("      if (row + 8 < N)\n        atomicAdd(",
+                       "      if (row + 8 < 0)\n        atomicAdd(")],
+    # Each query step's products up to dK in one pass of 64 queries at
+    # every d, not two sub-steps of 32 at d 32 and 64: twice the scores and
+    # dP live at once.
+    "sub_m64": [("{ return D == 16 ? 64 : 32; }", "{ return 64; }")],
+}
+BWD_VARIANTS = {"kept": [], **{name: [name] for name in BWD_EDITS}}
+DIAGNOSTIC = {"no_dq_atomics"}
+# (B, N, h, d), bf16: the flagship train step, the head-sharded TP step,
+# the CFG train step's N 1024 (batch 80) and the CFG sampler's N 256.
+BWD_SHAPES = [(16, 1024, 8, 32), (8, 1024, 4, 32), (80, 1024, 8, 16),
+              (160, 256, 8, 32)]
+# Against the plain twin, each gradient against its own largest value:
+# the bf16 tolerance that chip_smoke.py holds against the fp32 autograd.
+BWD_RTOL = att.BWD_RTOL["bfloat16", "randn"]
 # (B, N, h, d): the flagship (256², batch 8), the smoke's path phase (64²,
 # batch 2), 64² at batch 8, 128² at batch 2, a ragged N, d 16 and d 64.
 SHAPES = [(8, 1024, 8, 32), (2, 64, 8, 32), (8, 64, 8, 32), (2, 256, 8, 32),
           (8, 1000, 8, 32), (8, 1024, 8, 16), (2, 1000, 8, 64)]
 
 
-def variant_source(edits: list[str]) -> str:
+def variant_source(edits: list[str], table: dict = EDITS) -> str:
     src = (cuda_build.CSRC_DIR / att.SOURCE).read_text()
     for name in edits:
-        for old, new in EDITS[name]:
+        for old, new in table[name]:
             if src.count(old) != 1:
                 sys.exit(f"attention_variants: edit {name!r} matches the "
                          f"source {src.count(old)} times, expected once: "
@@ -99,13 +131,16 @@ def variant_source(edits: list[str]) -> str:
     return src
 
 
-def build_all() -> dict[str, cuda_build.BuiltLibrary]:
+def build_all(backward: bool = False
+              ) -> dict[str, cuda_build.BuiltLibrary]:
     folder = cuda_build.BUILD_DIR / "variants"
     folder.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for name, edits in VARIANTS.items():
-        path = folder / f"attention_{name}.cu"
-        path.write_text(variant_source(edits))
+    variants, table = ((BWD_VARIANTS, BWD_EDITS) if backward
+                       else (VARIANTS, EDITS))
+    for name, edits in variants.items():
+        path = folder / f"attention_{'bwd_' * backward}{name}.cu"
+        path.write_text(variant_source(edits, table))
         paths[name] = path
     with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
         built = dict(zip(paths, pool.map(cuda_build.build, paths.values())))
@@ -114,11 +149,51 @@ def build_all() -> dict[str, cuda_build.BuiltLibrary]:
         hmma = cuda_build.sass_opcode_counts(lib.path, "HMMA")
         for sym, res in sorted(cuda_build.kernel_resources(lib.ptxas_log).items()):
             inst = att.kernel_instance(sym)
-            if inst is not None and inst[1] == torch.float32:
-                print(f"  {name} d {inst[2]}: {res.registers} registers, "
-                      f"{res.spill_bytes} bytes spilled, {hmma.get(sym, 0)} "
-                      f"HMMA", flush=True)
+            if inst is None or not (inst[0].startswith("attention_bwd")
+                                    if backward else inst[1] == torch.float32):
+                continue
+            print(f"  {name} {inst[0]} {inst[1]} d {inst[2]}: "
+                  f"{res.registers} registers, {res.spill_bytes} bytes "
+                  f"spilled, {hmma.get(sym, 0)} HMMA", flush=True)
     return built
+
+
+def main_backward() -> None:
+    built = build_all(backward=True)
+    gen = torch.Generator("cuda").manual_seed(0)
+    order = list(BWD_VARIANTS) + list(reversed(BWD_VARIANTS))
+    for B, N, h, d in BWD_SHAPES:
+        qkv = torch.randn(B, N, 3, h, d, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)  # the model's packed, strided views
+        g = torch.randn(B, N, h, d, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        out, lse = att.call_library_lse(built["kept"].lib, q, k, v)
+        ref = att.attention_backward_reference(q, k, v, out, lse, g)
+        row = {"shape": [B, N, h, d]}
+        times: dict[str, list[float]] = {name: [] for name in BWD_VARIANTS}
+        for name in order:
+            lib = built[name].lib
+
+            def call():
+                return att.call_library_bwd(lib, q, k, v, out, lse, g)
+
+            if not times[name] and name not in DIAGNOSTIC:
+                err = att.grad_rel_err(call(), ref)
+                if not err <= BWD_RTOL:
+                    sys.exit(f"attention_variants: {name} errs by {err} > "
+                             f"{BWD_RTOL} at {(B, N, h, d)}")
+                row[f"{name}_err"] = err
+            times[name].append(device_ms(call, reps=15, inner=5))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        s_out = F.scaled_dot_product_attention(qt, kt, vt)
+        row["sdpa_bwd_ms"] = device_ms(lambda: torch.autograd.grad(
+            s_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True),
+            reps=15, inner=5)
+        for name, ms in times.items():
+            row[f"{name}_ms"] = ms
+        print(json.dumps(row), flush=True)
 
 
 def main() -> None:
@@ -127,6 +202,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = cuda_build.nvidia_smi_line()
+    if "--backward" in sys.argv[1:]:
+        main_backward()
+        print(smi, flush=True)
+        return
     built = build_all()
     gen = torch.Generator("cuda").manual_seed(0)
     order = list(VARIANTS) + list(reversed(VARIANTS))

@@ -34,8 +34,9 @@ Modes (BENCH_MODE):
           of d 32, bf16): forward and forward + backward of chained calls,
           µs a call, for the arms `plain` (attention_reference, the plain
           PyTorch version, called as the A/B arm) and `kernel` (the
-          wrapper, on the card the CUDA kernel with its recomputed
-          backward).
+          wrapper: on the card the CUDA forward kernel and, for forward +
+          backward, the CUDA backward kernel); each record names its
+          arm's route.
 
 The sampling and train modes always run the attention through the wrapper,
 which on the card is the CUDA kernel (Config.use_pallas_attention has no
@@ -207,6 +208,7 @@ def bench_sample(quick: bool, device: torch.device) -> None:
             steps=steps, size=size, reps=reps, wall_s=times,
             event_span_ms=spans, unet_call_device_ms=call_ms,
             attention_launches=launches,
+            attention_bwd_launches=att.launch_counts[att.BACKWARD_KERNEL],
             launches_per_run=launches / reps,
             weights="bf16 once", norm_out="bf16")
     print(json.dumps({
@@ -308,7 +310,8 @@ def bench_train(quick: bool, device: torch.device) -> None:
     _, span = _event_ms(run, device)
     _sync(device)
     seconds = time.time() - t0
-    launches = att.launch_count
+    launches = att.launch_counts["attention_fwd"]
+    bwd_launches = att.launch_counts[att.BACKWARD_KERNEL]
     last = float(m["total"])
     if not np.isfinite(last):
         raise RuntimeError(f"a train step gave loss {last}")
@@ -319,6 +322,7 @@ def bench_train(quick: bool, device: torch.device) -> None:
            + (" grad-only" if grad_only else ""))
     _record(device, mode="train", batch=batch, size=size, reps=reps,
             wall_s=seconds, event_span_ms=span, attention_launches=launches,
+            attention_bwd_launches=bwd_launches,
             launches_per_step=launches / reps, last_loss=last,
             peak_gib=(torch.cuda.max_memory_allocated(device) / 2**30
                       if device.type == "cuda" else None))
@@ -328,6 +332,17 @@ def bench_train(quick: bool, device: torch.device) -> None:
         "unit": "steps/sec",
         "vs_baseline": round(sps, 3),
     }), flush=True)
+
+
+def _attn_route(arm: str, name: str, device: torch.device) -> str:
+    """What an arm of the attention A/B runs: the kernel arm's forward +
+    backward on the card is the forward kernel (its lse instance) and the
+    backward kernel; everything on the CPU, and the plain arm, is the plain
+    version under autograd."""
+    if arm == "plain" or device.type != "cuda":
+        return "plain" + (" + autograd" if name == "fwd+bwd" else "")
+    return ("forward kernel" if name == "fwd" else
+            "forward kernel (lse) + backward kernel")
 
 
 def bench_attn(quick: bool, device: torch.device) -> None:
@@ -377,7 +392,8 @@ def bench_attn(quick: bool, device: torch.device) -> None:
                 times.append(time.time() - t0)
             if not bool(torch.isfinite(out)):
                 raise RuntimeError(f"attention {arm} {name} gave {out}")
-            launches = att.launch_count
+            launches = att.launch_counts["attention_fwd"]
+            bwd_launches = att.launch_counts[att.BACKWARD_KERNEL]
             us = min(times) / iters * 1e6
             results[f"{arm} {name}"] = round(us, 1)
             q, k, v = inputs(0)
@@ -396,7 +412,9 @@ def bench_attn(quick: bool, device: torch.device) -> None:
             _record(device, mode="attn", arm=arm, pass_=name, B=B, N=N, h=h,
                     d=d, iters=iters, reps=reps, wall_s=times,
                     device_us_per_call=device_us[f"{arm} {name}"],
-                    attention_launches=launches)
+                    attention_launches=launches,
+                    attention_bwd_launches=bwd_launches,
+                    route=_attn_route(arm, name, device))
             print(json.dumps({
                 "metric": f"attention {name} us/call {arm} "
                           f"(B={B} N={N} h={h} d={d}, bf16)",

@@ -1,4 +1,5 @@
-// Fused spatial self-attention forward for the U-Net bottleneck, sm_90a.
+// Fused spatial self-attention for the U-Net bottleneck, sm_90a: the
+// forward, and the backward of its bf16/fp16 form.
 //
 // Replaces the TPU kernel hybrid_diffusion_tpu/ops/attention.py:63,
 // _pallas_attention (body _attention_kernel): out = softmax(q·kᵀ/√d)·v for
@@ -98,10 +99,72 @@
 // Keys at or past N are zero-filled and masked as above. This route needs
 // 16-byte-aligned pointers and strides in multiples of 4 elements.
 //
+// The backward (bf16, fp16), FlashAttention-2-style, replaces the reverse
+// mode of the TPU kernel: _pallas_attention_bwd (hybrid_diffusion_tpu/ops/
+// attention.py:98), the vjp of _xla_attention at the saved q, k, v, which
+// the port ran as autograd of its plain version (N² fp32 scores and
+// probabilities written to device memory several times over). It computes
+// dq, dk, dv from q, k, v, the forward's output O and its per-row
+// log-sum-exp (the forward's LSE instance writes lse = m·c + log2(l), c =
+// log2(e)/√d, at its epilogue), and dO; three kernels on one stream, one
+// launch to the wrapper:
+//   attention_bwd_prep_kernel  D = rowsum(dO∘O) in fp32 (FA2's identity,
+//     for rowsum(P∘dP)), and the fp32 dQ accumulator set to zero;
+//   attention_bwd_mma_kernel   one block a (key tile of 64, batch·head),
+//     walking every query tile;
+//   attention_bwd_dq_kernel    dQ rounded once from fp32 to T.
+// Rounding follows the vjp of _xla_attention where it costs nothing: S and
+// P in fp32, P rounded to T for dV = Pᵀ·dO, dP = dO·Vᵀ accumulated in fp32
+// and rounded to T, dS = P∘(dP − D)/√d in fp32, every sum of a product in
+// fp32 and each gradient rounded once. Two departures, measured by the CPU
+// emulation (tests/test_torch_attention_bwd.py): D from the rounded output
+// in place of rowsum(P∘dP), and dS rounded to T as the operand of dK and
+// dQ's products.
+//
+// Bound at the train shape (B = 16, N = 1024, h = 8, d = 32), per call:
+//   operations  10·B·h·N²·d = 43 GFLOP (S again, dP, dV, dK, dQ) -> 43 us
+//   bytes       (8·B·N·h·d·2 + lse) = 17 MB                      -> 5 us
+//   exponentials B·h·N² = 134 M                                  -> 34 us
+// so the products and the exponentials, not the bytes.
+//
+// Where the design had to choose:
+// - The two transposes. Pᵀ feeds dV and dSᵀ feeds dK. Each warp owns 16
+//   keys as an m16 tile and computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with the
+//   keys on the M side, so that Pᵀ and dSᵀ come out as C fragments that are
+//   the A fragments of dV += Pᵀ·dO and dK += dSᵀ·Q as they lie (the
+//   forward's trick for P·V); Q and dO are read with ldmatrix for the
+//   first two products and ldmatrix.trans for the last two. Only dQ = dS·K
+//   needs dS the other way round: each warp stores its dSᵀ rows in a
+//   swizzled shared tile, and after a barrier warp w reads queries
+//   16w..16w+15 of it with ldmatrix.trans as dS's A fragments.
+// - dQ across key blocks: fp32 atomics (float2 atomicAdd, red.global) into
+//   a scratch the pre-pass zeroes, then the conversion. A second kernel
+//   over query tiles would be deterministic but recompute S, P and dP (a
+//   half more products). So dQ's low bits vary from run to run (the smoke
+//   prints the spread); dK and dV are written once, by one block, and
+//   repeat exactly.
+// - Ragged N. Keys at or past N are zero-filled by the copies and get P =
+//   0 (a padded key's exp2(0 − lse) would otherwise reach 2^33 on inputs
+//   whose real scores are all very negative, past fp16's range, and turn
+//   dQ into inf·0). Queries at or past N are zero-filled, their lse is
+//   taken as +inf (P = 0 exactly) and their D as 0, so lse and D are never
+//   read past N; their dQ rows are not stored, nor dK and dV rows past N.
+// - grad_out's layout. The kernel reads dO by strides as it reads q, k, v;
+//   the wrapper copies it only where it is not in 16-byte chunks.
+// - Registers. dK and dV accumulate in fp32 registers, d/8 n8 tiles each
+//   for the warp's 16 keys; K's A fragments stay in registers, V's are read
+//   at each k16 step (holding both took d 64 past 255 registers and
+//   spilled), and at d 32 and 64 a query step runs in two sub-steps of 32
+//   queries (bwd_sub_m). The smoke refuses a spill.
+// - dQ's cost. Left out (a diagnostic variant in attention_variants.py),
+//   dQ's products and atomics take 13% of the backward at the train shape
+//   on an H100 (PERF.md).
+// - Scale. 1/√d enters dS once; the exp2 constant c carries it for P alone.
+//
 // Measured times: PERF.md.
 //
 // The output is a contiguous (B, N, h, d) tensor; the innermost (d) stride of
-// q, k and v must be 1. A ragged N is masked in both kernels.
+// q, k and v must be 1. A ragged N is masked in every kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -190,6 +253,12 @@ template <> struct Mma<__nv_bfloat16> {
     const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
   }
+  static __device__ __forceinline__ float round(float x) {  // to bf16 and back
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  }
   static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
     asm volatile(
@@ -203,6 +272,12 @@ template <> struct Mma<__half> {
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     const __half2 h = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float round(float x) {  // to fp16 and back
+    return __half2float(__float2half_rn(x));
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
   }
   static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
@@ -237,13 +312,16 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const T* base,
 // holds rows g and g+8, columns 2t, 2t+1 (+8); a B fragment columns g, rows
 // 2t, 2t+1 (+8); a C fragment rows g and g+8, columns 2t, 2t+1. Each warp
 // owns MMA_M_TILES m16 tiles of queries, so that every K and V fragment it
-// reads from shared memory feeds MMA_M_TILES products.
-template <typename T, int D>
+// reads from shared memory feeds MMA_M_TILES products. With LSE the kernel
+// also writes each query row's log-sum-exp in its exp2 domain, m·c +
+// log2(l) (c = log2(e)/√d), to the contiguous fp32 (B, h, N) `lse`: the
+// backward's P is exp2(s·c − lse).
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o, int N,
-                         int H, Strides qs, Strides ks, Strides vs,
-                         float scale_log2) {
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ lse, int N, int H, Strides qs,
+                         Strides ks, Strides vs, float scale_log2) {
   constexpr int MT = MMA_M_TILES;
   constexpr int WARP_M = 16 * MT;          // queries per warp
   constexpr int KSTEPS = D / 16;           // k16 steps of Q·Kᵀ
@@ -426,6 +504,11 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv_l[r] = 1.f / l;
+      if constexpr (LSE) {
+        const int row = m0 + warp * WARP_M + mt * 16 + g + 8 * r;
+        if ((lane & 3) == 0 && row < N)
+          lse[static_cast<int64_t>(bh) * N + row] = m_run[mt][r] * scale_log2 + log2f(l);
+      }
     }
     const int row0 = warp * WARP_M + mt * 16 + g;
 #pragma unroll
@@ -447,6 +530,330 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 chunk * 8) = val;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16 backward.
+
+constexpr int BWD_WARPS = 4;                 // warps per block
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int BWD_BLOCK_N = 16 * BWD_WARPS;  // keys per block: one m16 tile a warp
+constexpr int BWD_BLOCK_M = 64;              // queries per step of the loop
+// Queries per sub-step: a step's products up to dK run in sub-steps of
+// this many queries, so that only their scores, dP and fragments are live
+// at once. 32 at d 32 and 64: 128 and 213 registers, against 166 and 255
+// for the whole step (4 blocks a multiprocessor at d 32, not 3: on an H100
+// the head-sharded shape 7% faster, the train shape 1-2% slower); 64 at
+// d 16, where registers are not short (the CFG step's N 1024 up to 3%
+// faster). attention_variants.py --backward times both.
+__host__ __device__ constexpr int bwd_sub_m(int D) { return D == 16 ? 64 : 32; }
+constexpr int BWD_STAGES = 2;                // Q/dO tiles in flight in shared memory
+static_assert(BWD_THREADS == MMA_THREADS, "load_tile copies with MMA_THREADS threads");
+static_assert(BWD_THREADS == 2 * BWD_BLOCK_M, "one thread a query row's lse and one its D");
+constexpr int BWD_PREP_THREADS = 256;        // the pre-pass and the dQ conversion
+
+// The K and V tiles, the Q and dO rings, the dSᵀ tile, then the lse and D
+// rings (fp32).
+constexpr int bwd_smem_bytes(int D) {
+  return (2 * BWD_BLOCK_N + 2 * BWD_STAGES * BWD_BLOCK_M) * D * 2 +
+         BWD_BLOCK_N * BWD_BLOCK_M * 2 + 2 * BWD_STAGES * BWD_BLOCK_M * 4;
+}
+
+// The pre-pass, one 16-byte chunk (8 values) of a (b, n, h) row a thread,
+// D/8 neighbouring lanes a row: D = rowsum(dO∘O) in fp32 into the contiguous
+// (B, h, N) `delta`, and the row's fp32 dQ accumulator set to zero.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_PREP_THREADS)
+attention_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                          float* __restrict__ delta, float* __restrict__ dq_acc,
+                          int N, int H, int64_t rows, Strides os, Strides dos) {
+  constexpr int G = D / 8;  // lanes of one row; G divides 32
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * BWD_PREP_THREADS + threadIdx.x;
+  const int64_t row = idx / G;  // (b·N + n)·H + h
+  const int chunk = static_cast<int>(idx % G);
+  const bool valid = row < rows;
+  const int head = static_cast<int>(row % H);
+  const int64_t bn = row / H;
+  const int n = static_cast<int>(bn % N);
+  const int64_t b = bn / N;
+  float sum = 0.f;
+  if (valid) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + n * os.n + head * os.h + chunk * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + b * dos.b + n * dos.n + head * dos.h + chunk * 8);
+    const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = Mma<T>::unpack(ow[i]), c = Mma<T>::unpack(gw[i]);
+      sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
+    }
+    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + chunk * 8);
+    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (valid && chunk == 0) delta[(b * H + head) * N + n] = sum;
+}
+
+// The fp32 dQ accumulator, rounded once to T: 8 values a thread.
+template <typename T>
+__global__ void __launch_bounds__(BWD_PREP_THREADS)
+attention_bwd_dq_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
+                        int64_t chunks) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * BWD_PREP_THREADS + threadIdx.x;
+  if (c >= chunks) return;
+  const float4 a = reinterpret_cast<const float4*>(dq_acc)[2 * c];
+  const float4 e = reinterpret_cast<const float4*>(dq_acc)[2 * c + 1];
+  reinterpret_cast<uint4*>(dq)[c] = make_uint4(Mma<T>::pack(a.x, a.y), Mma<T>::pack(a.z, a.w),
+                                               Mma<T>::pack(e.x, e.y), Mma<T>::pack(e.z, e.w));
+}
+
+// One block a (key tile of BWD_BLOCK_N, batch·head); warp w owns keys
+// 16w..16w+15 of the tile as one m16 tile, so the keys are on the M side of
+// the first four products and their C fragments are the next products' A
+// fragments (layouts as in the forward):
+//   Sᵀ  = K·Qᵀ      A: K (registers, loaded once)    B: Q rows (ldmatrix)
+//   dPᵀ = V·dOᵀ     A: V (ldmatrix, each step)       B: dO rows (ldmatrix)
+//   dV += Pᵀ·dO     A: Pᵀ (Sᵀ's C fragments)        B: dO (ldmatrix.trans)
+//   dK += dSᵀ·Q     A: dSᵀ (C fragments)             B: Q (ldmatrix.trans)
+//   dQ += dS·K      A: dS (the dSᵀ tile, ldmatrix.trans)  B: K (ldmatrix.trans)
+// For dQ, warp w takes queries 16w..16w+15 of the step against all the
+// block's keys, and adds its fp32 C fragments to dq_acc with float2 atomics.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+attention_bwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
+                         int N, int H, Strides qs, Strides ks, Strides vs, Strides dos,
+                         float scale_log2, float scale) {
+  constexpr int KSTEPS = D / 16;              // k16 steps over d (Sᵀ, dPᵀ)
+  constexpr int SUB_M = bwd_sub_m(D);         // queries a sub-step
+  constexpr int SUB_TILES = SUB_M / 8;        // its n8 query tiles
+  constexpr int SUB_STEPS = SUB_M / 16;       // its k16 steps of queries (dV, dK)
+  static_assert(BWD_BLOCK_M % SUB_M == 0 && SUB_M % 16 == 0, "tile shape");
+  constexpr int O_TILES = D / 8;              // n8 tiles over d (dV, dK, dQ)
+  constexpr int KV_BYTES = BWD_BLOCK_N * D * 2;
+  constexpr int QT_BYTES = BWD_BLOCK_M * D * 2;
+  constexpr int DS_OFFSET = 2 * KV_BYTES + 2 * BWD_STAGES * QT_BYTES;
+  constexpr int STAT_OFFSET = DS_OFFSET + BWD_BLOCK_N * BWD_BLOCK_M * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int head = bh % H;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BWD_BLOCK_N;
+  const T* q_base = q + b * qs.b + head * qs.h;
+  const T* k_base = k + b * ks.b + head * ks.h;
+  const T* v_base = v + b * vs.b + head * vs.h;
+  const T* do_base = dout + b * dos.b + head * dos.h;
+  const float* lse_row = lse + static_cast<int64_t>(bh) * N;
+  const float* delta_row = delta + static_cast<int64_t>(bh) * N;
+  const uint32_t sk = smem_u32(smem);
+  const uint32_t sv = sk + KV_BYTES;
+  const uint32_t sq = sv + KV_BYTES;
+  const uint32_t sdo = sq + BWD_STAGES * QT_BYTES;
+  const uint32_t sds = sk + DS_OFFSET;
+  float* const stats = reinterpret_cast<float*>(smem + STAT_OFFSET);  // [lse, D][stage][row]
+  const int m_tiles = (N + BWD_BLOCK_M - 1) / BWD_BLOCK_M;
+
+  // Thread i < BWD_BLOCK_M carries the lse of query row m0 + i, thread
+  // BWD_BLOCK_M + i its D. Rows at or past N are never read: lse +inf makes
+  // their P exactly 0, and D 0.
+  const int stat_row = threadIdx.x % BWD_BLOCK_M;
+  const bool is_lse = threadIdx.x < BWD_BLOCK_M;
+  const float* stat_src = is_lse ? lse_row : delta_row;
+  auto row_stat = [&](int m0) {
+    const int r = m0 + stat_row;
+    return r < N ? stat_src[r] : (is_lse ? INFINITY : 0.f);
+  };
+  float* const my_stat = stats + (is_lse ? 0 : BWD_STAGES * BWD_BLOCK_M) + stat_row;
+
+  // Prologue: the block's K and V tiles and the first Q and dO tiles, one
+  // commit group; the first lse and D through registers.
+  load_tile<T, D, BWD_BLOCK_N>(sk, k_base, ks.n, n0, N);
+  load_tile<T, D, BWD_BLOCK_N>(sv, v_base, vs.n, n0, N);
+  load_tile<T, D, BWD_BLOCK_M>(sq, q_base, qs.n, 0, N);
+  load_tile<T, D, BWD_BLOCK_M>(sdo, do_base, dos.n, 0, N);
+  cp_async_commit();
+  my_stat[0] = row_stat(0);
+
+  uint32_t kf[KSTEPS][4];  // this warp's keys, A fragments
+  float dk_acc[O_TILES][4], dv_acc[O_TILES][4];
+#pragma unroll
+  for (int tt = 0; tt < O_TILES; ++tt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[tt][e] = dv_acc[tt][e] = 0.f;
+  // Keys at or past N (zero-filled) get P = 0: their dS then is 0 too, so
+  // no padded key reaches dQ, whatever the inputs.
+  const int key_lo = n0 + warp * 16 + g;
+  const bool key_lo_ok = key_lo < N, key_hi_ok = key_lo + 8 < N;
+
+  for (int it = 0; it < m_tiles; ++it) {
+    const int st = it % BWD_STAGES;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` and its lse, D are visible; every warp is done with it-1
+    float next_stat = 0.f;
+    if (it + 1 < m_tiles) {
+      const int ns = (it + 1) % BWD_STAGES;
+      load_tile<T, D, BWD_BLOCK_M>(sq + ns * QT_BYTES, q_base, qs.n, (it + 1) * BWD_BLOCK_M, N);
+      load_tile<T, D, BWD_BLOCK_M>(sdo + ns * QT_BYTES, do_base, dos.n, (it + 1) * BWD_BLOCK_M, N);
+      next_stat = row_stat((it + 1) * BWD_BLOCK_M);
+    }
+    cp_async_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        ldmatrix_x4(kf[kk], sk + swizzle<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+    }
+    const uint32_t sq_t = sq + st * QT_BYTES;
+    const uint32_t sdo_t = sdo + st * QT_BYTES;
+    const float* lse_t = stats + st * BWD_BLOCK_M;
+    const float* delta_t = stats + (BWD_STAGES + st) * BWD_BLOCK_M;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in fp32, SUB_M queries at a time: a Q or
+    // dO row, d contiguous, is the column-major B operand as it lies (the
+    // forward's K). V's A fragments are read at each k16 step, not held:
+    // at d 64, holding them as well as K's took ptxas past 255 registers.
+#pragma unroll 1
+    for (int sub = 0; sub < BWD_BLOCK_M / SUB_M; ++sub) {
+      const int j0 = sub * SUB_TILES;   // the sub-step's first n8 query tile
+      float s[SUB_TILES][4], dp[SUB_TILES][4];
+#pragma unroll
+      for (int j = 0; j < SUB_TILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t vf[4];
+        ldmatrix_x4(vf, sv + swizzle<D>(warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+#pragma unroll
+        for (int j = 0; j < SUB_TILES; j += 2) {
+          const uint32_t off = swizzle<D>((j0 + j) * 8 + (lane & 7) + ((lane >> 4) << 3),
+                                          kk * 2 + ((lane >> 3) & 1));
+          uint32_t qb[4], ob[4];
+          ldmatrix_x4(qb, sq_t + off);
+          ldmatrix_x4(ob, sdo_t + off);
+          Mma<T>::mma(s[j], kf[kk], qb[0], qb[1]);
+          Mma<T>::mma(s[j + 1], kf[kk], qb[2], qb[3]);
+          Mma<T>::mma(dp[j], vf, ob[0], ob[1]);
+          Mma<T>::mma(dp[j + 1], vf, ob[2], ob[3]);
+        }
+      }
+
+      // Pᵀ = exp2(s·c − lse) and dSᵀ = Pᵀ∘(dPᵀ − D)/√d, rows g and g+8
+      // (keys) and columns 2t, 2t+1 (queries) of each n8 tile. dP is
+      // rounded to T first, as the JAX vjp rounds it; P (for dV) and dS
+      // (for dK and dQ) are rounded to T as they are packed into A
+      // fragments; dSᵀ also goes to shared memory for dQ.
+      uint32_t pf[SUB_STEPS][4], dsf[SUB_STEPS][4];
+#pragma unroll
+      for (int j = 0; j < SUB_TILES; ++j) {
+        const int col = (j0 + j) * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + col);
+        float p[4], ds[4];
+        p[0] = key_lo_ok ? fast_exp2(fmaf(s[j][0], scale_log2, -l2.x)) : 0.f;
+        p[1] = key_lo_ok ? fast_exp2(fmaf(s[j][1], scale_log2, -l2.y)) : 0.f;
+        p[2] = key_hi_ok ? fast_exp2(fmaf(s[j][2], scale_log2, -l2.x)) : 0.f;
+        p[3] = key_hi_ok ? fast_exp2(fmaf(s[j][3], scale_log2, -l2.y)) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = p[e] * (Mma<T>::round(dp[j][e]) - ((e & 1) ? d2.y : d2.x)) * scale;
+        pf[j / 2][(j & 1) * 2] = Mma<T>::pack(p[0], p[1]);
+        pf[j / 2][(j & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
+        const uint32_t lo = Mma<T>::pack(ds[0], ds[1]), hi = Mma<T>::pack(ds[2], ds[3]);
+        dsf[j / 2][(j & 1) * 2] = lo;
+        dsf[j / 2][(j & 1) * 2 + 1] = hi;
+        *reinterpret_cast<uint32_t*>(smem + DS_OFFSET +
+                                     swizzle<BWD_BLOCK_M>(warp * 16 + g, j0 + j) + 4 * t) = lo;
+        *reinterpret_cast<uint32_t*>(smem + DS_OFFSET +
+                                     swizzle<BWD_BLOCK_M>(warp * 16 + g + 8, j0 + j) + 4 * t) = hi;
+      }
+
+      // dV += Pᵀ·dO and dK += dSᵀ·Q: ldmatrix.trans of dO and Q gives the
+      // B fragments of two n8 tiles of d for one k16 step of queries.
+#pragma unroll
+      for (int kk = 0; kk < SUB_STEPS; ++kk) {
+#pragma unroll
+        for (int tt = 0; tt < O_TILES; tt += 2) {
+          const uint32_t off = swizzle<D>(
+              (sub * SUB_STEPS + kk) * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+              tt + (lane >> 4));
+          uint32_t ob[4], qb[4];
+          ldmatrix_x4_trans(ob, sdo_t + off);
+          ldmatrix_x4_trans(qb, sq_t + off);
+          Mma<T>::mma(dv_acc[tt], pf[kk], ob[0], ob[1]);
+          Mma<T>::mma(dv_acc[tt + 1], pf[kk], ob[2], ob[3]);
+          Mma<T>::mma(dk_acc[tt], dsf[kk], qb[0], qb[1]);
+          Mma<T>::mma(dk_acc[tt + 1], dsf[kk], qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp's dSᵀ rows are in shared memory
+
+    // dQ rows 16w..16w+15 of this step += dS·K over the block's keys: the
+    // dSᵀ tile read with ldmatrix.trans is dS's A fragment, K read with
+    // ldmatrix.trans the B fragments (the forward's V).
+    float dq[O_TILES][4];
+#pragma unroll
+    for (int tt = 0; tt < O_TILES; ++tt) dq[tt][0] = dq[tt][1] = dq[tt][2] = dq[tt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BWD_BLOCK_N / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, sds + swizzle<BWD_BLOCK_M>(kk * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                       warp * 2 + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int tt = 0; tt < O_TILES; tt += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, sk + swizzle<D>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                              tt + (lane >> 4)));
+        Mma<T>::mma(dq[tt], a, kb[0], kb[1]);
+        Mma<T>::mma(dq[tt + 1], a, kb[2], kb[3]);
+      }
+    }
+    const int row = it * BWD_BLOCK_M + warp * 16 + g;
+    float* dst = dq_acc + ((static_cast<int64_t>(b) * N + row) * H + head) * D + 2 * t;
+#pragma unroll
+    for (int tt = 0; tt < O_TILES; ++tt) {
+      if (row < N)
+        atomicAdd(reinterpret_cast<float2*>(dst + tt * 8), make_float2(dq[tt][0], dq[tt][1]));
+      if (row + 8 < N)
+        atomicAdd(reinterpret_cast<float2*>(dst + 8 * H * D + tt * 8),
+                  make_float2(dq[tt][2], dq[tt][3]));
+    }
+    if (it + 1 < m_tiles) my_stat[((it + 1) % BWD_STAGES) * BWD_BLOCK_M] = next_stat;
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none behind
+
+  // Epilogue: dV, then dK, rounded to T, staged in this warp's own rows of
+  // the V tile (only this warp reads them), each key row < N written to
+  // the contiguous (B, N, h, d) output in 16-byte stores.
+  const uint32_t col = t * 4;
+  auto store = [&](const float (&acc)[O_TILES][4], T* out) {
+    __syncwarp();
+#pragma unroll
+    for (int tt = 0; tt < O_TILES; ++tt) {
+      *reinterpret_cast<uint32_t*>(smem + KV_BYTES + swizzle<D>(warp * 16 + g, tt) + col) =
+          Mma<T>::pack(acc[tt][0], acc[tt][1]);
+      *reinterpret_cast<uint32_t*>(smem + KV_BYTES + swizzle<D>(warp * 16 + g + 8, tt) + col) =
+          Mma<T>::pack(acc[tt][2], acc[tt][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int r = c / (D / 8), chunk = c % (D / 8);
+      const int key = n0 + warp * 16 + r;
+      if (key < N)
+        *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * N + key) * H + head) * D +
+                                  chunk * 8) =
+            *reinterpret_cast<const uint4*>(smem + KV_BYTES + swizzle<D>(warp * 16 + r, chunk));
+    }
+  };
+  store(dv_acc, dv);
+  store(dk_acc, dk);
 }
 
 // ---------------------------------------------------------------------------
@@ -798,10 +1205,12 @@ void launch_tf32(const void* q, const void* k, const void* v, void* o, int B,
       scale_log2);
 }
 
+// Launches the forward of type T; `lse` (16-bit types only) non-null takes
+// the instance that also writes the log-sum-exp.
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int N, int H, Strides qs, Strides ks, Strides vs,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int N, int H, Strides qs, Strides ks,
+                   Strides vs, cudaStream_t stream) {
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   if constexpr (std::is_same_v<T, float>) {
     constexpr int MT = tf32_m_tiles(D);
@@ -819,29 +1228,86 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
       launch_tf32<D, 1>(q, k, v, o, B, N, H, qs, ks, vs, scale_log2, stream);
   } else {
     constexpr int smem = mma_smem_bytes(D);
+    auto kernel = lse ? attention_fwd_mma_kernel<T, D, true>
+                      : attention_fwd_mma_kernel<T, D, false>;
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          attention_fwd_mma_kernel<T, D>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
     }
     const dim3 grid((N + MMA_BLOCK_M - 1) / MMA_BLOCK_M, B * H);
-    attention_fwd_mma_kernel<T, D><<<grid, MMA_THREADS, smem, stream>>>(
+    kernel<<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), N, H, qs, ks, vs,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, N, H, qs, ks, vs,
         scale_log2);
   }
   return cudaGetLastError();
 }
 
+// The backward of type T (bf16, fp16): the pre-pass, the main kernel, the
+// dQ conversion, on one stream; the error of the first launch that fails.
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, float* dq_acc,
+                       void* dq, void* dk, void* dv, int B, int N, int H, Strides qs,
+                       Strides ks, Strides vs, Strides os, Strides dos,
+                       cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(B) * N * H;
+  const int64_t prep_threads = rows * (D / 8);
+  attention_bwd_prep_kernel<T, D>
+      <<<static_cast<unsigned>((prep_threads + BWD_PREP_THREADS - 1) / BWD_PREP_THREADS),
+         BWD_PREP_THREADS, 0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
+                                        delta, dq_acc, N, H, rows, os, dos);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int smem = bwd_smem_bytes(D);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(attention_bwd_mma_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const dim3 grid((N + BWD_BLOCK_N - 1) / BWD_BLOCK_N, B * H);
+  attention_bwd_mma_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+      static_cast<T*>(dv), N, H, qs, ks, vs, dos, 1.4426950408889634f * scale, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int64_t chunks = rows * (D / 8);
+  attention_bwd_dq_kernel<T>
+      <<<static_cast<unsigned>((chunks + BWD_PREP_THREADS - 1) / BWD_PREP_THREADS),
+         BWD_PREP_THREADS, 0, stream>>>(dq_acc, static_cast<T*>(dq), chunks);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int N, int H, Strides qs, Strides ks,
-                       Strides vs, cudaStream_t stream) {
+                       void* o, float* lse, int B, int N, int H, Strides qs,
+                       Strides ks, Strides vs, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, N, H, qs, ks, vs, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, N, H, qs, ks, vs, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, N, H, qs, ks, vs, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, N, H, qs, ks, vs, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, N, H, qs, ks, vs, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, N, H, qs, ks, vs, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse,
+                         float* delta, float* dq_acc, void* dq, void* dk, void* dv,
+                         int B, int N, int H, Strides qs, Strides ks, Strides vs,
+                         Strides os, Strides dos, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_bwd<T, 16>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv,
+                                       B, N, H, qs, ks, vs, os, dos, stream);
+    case 32: return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv,
+                                       B, N, H, qs, ks, vs, os, dos, stream);
+    case 64: return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv,
+                                       B, N, H, qs, ks, vs, os, dos, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -874,9 +1340,68 @@ extern "C" int hd_attention_fwd(const void* q, const void* k, const void* v,
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_d<float>(D, q, k, v, o, B, N, H, qs, ks, vs, s);
-    case 1: return dispatch_d<__half>(D, q, k, v, o, B, N, H, qs, ks, vs, s);
-    case 2: return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, N, H, qs, ks, vs, s);
+    case 0: return dispatch_d<float>(D, q, k, v, o, nullptr, B, N, H, qs, ks, vs, s);
+    case 1: return dispatch_d<__half>(D, q, k, v, o, nullptr, B, N, H, qs, ks, vs, s);
+    case 2: return dispatch_d<__nv_bfloat16>(D, q, k, v, o, nullptr, B, N, H, qs, ks, vs, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16/fp16 forward that also writes the fp32 log-sum-exp of each query
+// row, in the kernel's exp2 domain, to the contiguous (B, h, N) `lse`.
+// dtype: 1 float16, 2 bfloat16; otherwise as hd_attention_fwd.
+extern "C" int hd_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                    void* o, float* lse, int B, int N, int H, int D,
+                                    int dtype, int64_t q_sb, int64_t q_sn, int64_t q_sh,
+                                    int64_t k_sb, int64_t k_sn, int64_t k_sh,
+                                    int64_t v_sb, int64_t v_sn, int64_t v_sh,
+                                    void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || B * H > 65535 || lse == nullptr)
+    return cudaErrorInvalidValue;
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
+  if (!(aligned_16(q, B, N, H, qs, 2) && aligned_16(k, B, N, H, ks, 2) &&
+        aligned_16(v, B, N, H, vs, 2) && aligned_16(o)))
+    return cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return dispatch_d<__half>(D, q, k, v, o, lse, B, N, H, qs, ks, vs, s);
+    case 2: return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, N, H, qs, ks, vs, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16/fp16 backward: dq, dk, dv (contiguous (B, N, h, d), the input
+// type) of out = softmax(q·kᵀ/√d)·v for the incoming gradient `dout`, from
+// the forward's inputs, its output `o` and its `lse` (hd_attention_fwd_lse).
+// `delta` (fp32, B·h·N) and `dq_acc` (fp32, B·N·h·d) are the caller's
+// scratch; the pre-pass fills both. q, k, v, o and dout are strided (B, N,
+// h, d) views as hd_attention_fwd takes them. dtype: 1 float16, 2 bfloat16.
+extern "C" int hd_attention_bwd(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout, const float* lse,
+                                float* delta, float* dq_acc, void* dq, void* dk, void* dv,
+                                int B, int N, int H, int D, int dtype,
+                                int64_t q_sb, int64_t q_sn, int64_t q_sh,
+                                int64_t k_sb, int64_t k_sn, int64_t k_sh,
+                                int64_t v_sb, int64_t v_sn, int64_t v_sh,
+                                int64_t o_sb, int64_t o_sn, int64_t o_sh,
+                                int64_t do_sb, int64_t do_sn, int64_t do_sh,
+                                void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || B * H > 65535) return cudaErrorInvalidValue;
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
+      os{o_sb, o_sn, o_sh}, dos{do_sb, do_sn, do_sh};
+  if (!(aligned_16(q, B, N, H, qs, 2) && aligned_16(k, B, N, H, ks, 2) &&
+        aligned_16(v, B, N, H, vs, 2) && aligned_16(o, B, N, H, os, 2) &&
+        aligned_16(dout, B, N, H, dos, 2) && aligned_16(lse) && aligned_16(delta) &&
+        aligned_16(dq_acc) && aligned_16(dq) && aligned_16(dk) && aligned_16(dv)))
+    return cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      return dispatch_bwd<__half>(D, q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, B,
+                                  N, H, qs, ks, vs, os, dos, s);
+    case 2:
+      return dispatch_bwd<__nv_bfloat16>(D, q, k, v, o, dout, lse, delta, dq_acc, dq, dk,
+                                         dv, B, N, H, qs, ks, vs, os, dos, s);
     default: return cudaErrorInvalidValue;
   }
 }

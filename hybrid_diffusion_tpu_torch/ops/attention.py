@@ -19,11 +19,19 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     shape, so that `torch.export` traces through the op (it cannot trace
     the ctypes call) and an exported program launches the same kernel.
     Importing this module (or the package) registers it.
-  - `RecomputedBackwardAttention`: reverse mode, as the JAX package's
-    `_pallas_attention_diff`: the forward is the kernel, the backward
-    differentiates `attention_reference` at the saved q, k, v (there is no
-    backward kernel; the JAX package has none either). CUDA tensors that
-    require grad go through it.
+  - `KernelBackwardAttention`: reverse mode of bf16 and fp16 CUDA tensors
+    that require grad, the counterpart of the JAX package's
+    `_pallas_attention_diff`. Its forward is the kernel that also writes
+    each query row's log-sum-exp (`attention_forward_lse`), its backward a
+    hand-written FlashAttention-2-style kernel (`attention_backward`,
+    `attention_bwd` in `csrc/attention.cu`), which computes what the JAX
+    backward `_pallas_attention_bwd` (the vjp of `_xla_attention`) does.
+    Their plain twins, `attention_forward_lse_reference` and
+    `attention_backward_reference`, take CPU tensors.
+  - `RecomputedBackwardAttention`: reverse mode of fp32 CUDA tensors: the
+    forward is the fp32 kernel, the backward differentiates
+    `attention_reference` at the saved q, k, v (there is no fp32 backward
+    kernel).
 
 Tensors are (B, N, heads, head_dim), as in the JAX package.
 """
@@ -44,11 +52,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 KERNEL_BY_DTYPE = {torch.bfloat16: "attention_fwd",
                    torch.float16: "attention_fwd",
                    torch.float32: "attention_fwd_fp32"}
+# The backward kernel's name, and the dtypes it takes.
+BACKWARD_KERNEL = "attention_bwd"
+BACKWARD_DTYPES = (torch.bfloat16, torch.float16)
 
 # Launches of the CUDA kernels in this process, one per launch and nowhere
-# else: in all, and by kernel.
+# else: in all, and by kernel. A backward counts once, though it runs three
+# kernels (a pre-pass, the main kernel and dQ's conversion).
 launch_count = 0
-launch_counts = dict.fromkeys(KERNEL_BY_DTYPE.values(), 0)
+launch_counts = dict.fromkeys([*KERNEL_BY_DTYPE.values(), BACKWARD_KERNEL], 0)
 _library: cuda_build.BuiltLibrary | None = None
 
 
@@ -74,12 +86,85 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_forward_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor
+                                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): `attention_reference`'s output and each query row's
+    log-sum-exp of the scores in the exp2 domain, log2 Σ_k exp2(s·c) with
+    c = log2(e)/√d, as a contiguous fp32 (B, h, N) tensor: the plain twin
+    of `attention_forward_lse`. P = exp2(s·c − lse)."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    lse = torch.logsumexp(scores * (1.0 / math.sqrt(d)), dim=-1) * math.log2(math.e)
+    return attention_reference(q, k, v), lse.contiguous()
+
+
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, dout: torch.Tensor
+                                 ) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """(dq, dk, dv) of out = attention_reference(q, k, v) for the incoming
+    gradient `dout`, by FlashAttention-2's algebra from the forward's output
+    and lse: the plain twin of `attention_backward`. fp32 inside, outputs
+    contiguous (B, N, h, d) in the input dtype. P is rounded to the input
+    dtype for dV and dP = dO·Vᵀ after its product, where the vjp of
+    `_xla_attention` rounds them; D = rowsum(dO∘O) stands in for
+    rowsum(P∘dP), which it equals in exact arithmetic."""
+    dt, d = q.dtype, q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    p = torch.exp2(scores * (scale * math.log2(math.e)) - lse[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf).to(dt).float()
+    delta = (gf * of).sum(-1).transpose(1, 2)[..., None]  # (B, h, N, 1)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return tuple(x.to(dt).contiguous() for x in (dq, dk, dv))
+
+
+# The backward kernel's tolerance against the fp32 plain version's autograd,
+# in `grad_rel_err`, by (dtype, inputs): the card checks (chip_smoke.py) hold
+# it on random normal inputs and on mask-trap ones (every score about −30,
+# where dQ is a near-cancellation, measured against the largest of the three
+# gradients). The kernel's CPU emulation (tests/test_torch_attention_bwd.py)
+# errs by at most 6.3e-3 (bf16), 3.7e-4 (fp16) and 2.8e-2 (fp16, mask trap)
+# at the card checks' shapes cut to B·h = 2: P, dP and dS are rounded to the
+# input type, and D is rowsum(dO∘O) of the rounded output. Each tolerance is
+# 4.7, 4.7 and 4.5 times that error.
+BWD_RTOL = {("bfloat16", "randn"): 3e-2, ("float16", "randn"): 1.75e-3,
+            ("float16", "mask trap"): 0.125}
+
+
+def grad_rel_err(ours, ref, common_scale: bool = False) -> float:
+    """The largest, over the gradients (dq, dk, dv), of max|ours − ref| /
+    max|ref|: each gradient against its own scale, or with `common_scale`
+    against the largest of the three."""
+    ours, ref = [a.float() for a in ours], [b.float() for b in ref]
+    scales = [b.abs().max() for b in ref]
+    if common_scale:
+        scales = [max(scales)] * len(ref)
+    return max(float((a - b).abs().max() / c)
+               for a, b, c in zip(ours, ref, scales))
+
+
 def bind(lib: ctypes.CDLL):
-    """The library's `hd_attention_fwd`, with its C signature set."""
+    """The library's `hd_attention_fwd`, with its C signature set, and the
+    signatures of `hd_attention_fwd_lse` and `hd_attention_bwd`."""
     fn = lib.hd_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.hd_attention_fwd_lse.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+        + [ctypes.c_void_p])
+    lib.hd_attention_fwd_lse.restype = ctypes.c_int
+    lib.hd_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 15
+        + [ctypes.c_void_p])
+    lib.hd_attention_bwd.restype = ctypes.c_int
     return fn
 
 
@@ -93,23 +178,28 @@ def load_kernel() -> cuda_build.BuiltLibrary:
     return _library
 
 
-# attention_fwd_mma_kernel<T, D> (bf16, fp16) and
-# attention_fwd_tf32_kernel<D, M16 tiles a warp> (fp32), mangled.
-_SYMBOL = re.compile(r"(attention_fwd_mma_kernel)I(13__nv_bfloat16|6__half)Li(\d+)E"
+# The tensor-core kernels, mangled: attention_fwd_mma_kernel<T, D, LSE>
+# (bf16, fp16), attention_bwd_mma_kernel<T, D> (bf16, fp16) and
+# attention_fwd_tf32_kernel<D, M16 tiles a warp> (fp32). The backward's
+# pre-pass and dQ conversion run no product and are not matched.
+_SYMBOL = re.compile(r"(attention_(?:fwd|bwd)_mma_kernel)I(13__nv_bfloat16|6__half)"
+                     r"Li(\d+)E(?:Lb([01])E)?"
                      r"|(attention_fwd_tf32_kernel)ILi(\d+)ELi(\d+)E")
 _MANGLED_DTYPES = {"13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
 
 
 def kernel_instance(symbol: str) -> tuple[str, torch.dtype, int] | None:
-    """(kernel, dtype, head_dim) of a mangled kernel symbol of this
-    library, or None for another symbol. The fp32 kernel's name carries its
-    m16 tiles a warp: `attention_fwd_tf32_kernel/m2`."""
+    """(kernel, dtype, head_dim) of a mangled tensor-core kernel symbol of
+    this library, or None for another symbol. The forward that writes the
+    log-sum-exp is `attention_fwd_mma_kernel/lse`; the fp32 kernel's name
+    carries its m16 tiles a warp: `attention_fwd_tf32_kernel/m2`."""
     m = _SYMBOL.search(symbol)
     if m is None:
         return None
     if m.group(1):
-        return m.group(1), _MANGLED_DTYPES[m.group(2)], int(m.group(3))
-    return f"{m.group(4)}/m{m.group(6)}", torch.float32, int(m.group(5))
+        name = m.group(1) + ("/lse" if m.group(4) == "1" else "")
+        return name, _MANGLED_DTYPES[m.group(2)], int(m.group(3))
+    return f"{m.group(5)}/m{m.group(7)}", torch.float32, int(m.group(6))
 
 
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -137,14 +227,23 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,
                          f"got {q.shape[-1]}")
     # Both kernels copy 16-byte chunks of each row: 8 elements of bf16 or
     # fp16, 4 of fp32.
-    per_chunk = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(s % per_chunk for s in strides):
+        if not _chunk_aligned(t):
+            per_chunk = 16 // q.element_size()
             raise ValueError(
                 f"attention kernel ({q.dtype}) needs {name} 16-byte aligned "
                 f"with strides in multiples of {per_chunk} elements, got "
                 f"address {t.data_ptr():#x} and strides {t.stride()}")
+
+
+def _chunk_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels can read (B, N, h, d) `t` in 16-byte chunks: d
+    contiguous, the address 16-byte aligned, and every stride of an axis
+    longer than 1 a multiple of 16 bytes."""
+    per_chunk = 16 // t.element_size()
+    strides = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % per_chunk for s in strides))
 
 
 def call_library(fn, q: torch.Tensor, k: torch.Tensor,
@@ -199,10 +298,144 @@ def _attention_fwd_fake(q, k, v):
     return q.new_empty(q.shape)
 
 
+def call_library_lse(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) from one call of a library's `hd_attention_fwd_lse` (the
+    library as `bind` set it up) on CUDA tensors it checks; counts
+    nothing."""
+    _check_cuda_inputs(q, k, v)
+    if q.dtype not in BACKWARD_DTYPES:
+        raise TypeError(f"attention forward with lse takes {BACKWARD_DTYPES}, "
+                        f"got {q.dtype}")
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hd_attention_fwd_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, N, H, D, _DTYPE_CODES[q.dtype],
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel (lse) launch failed: cudaError "
+                           f"{err} (B={B}, N={N}, h={H}, d={D}, {q.dtype})")
+    return out, lse
+
+
+def _require_cuda(q: torch.Tensor) -> None:
+    """The kernels' launchers take CUDA tensors only: the CPU's plain twins
+    are `attention_forward_lse_reference` and `attention_backward_reference`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"attention kernel takes CUDA tensors, got {q.device}")
+
+
+def attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of bf16/fp16 CUDA (B, N, h, d) q, k, v: the forward
+    kernel's instance that also writes the log-sum-exp (checked, counted as
+    the forward; it raises where the kernel does not take the inputs)."""
+    global launch_count
+    _require_cuda(q)
+    out, lse = call_library_lse(load_kernel().lib, q, k, v)
+    if out.numel():
+        launch_count += 1
+        launch_counts[KERNEL_BY_DTYPE[q.dtype]] += 1
+    return out, lse
+
+
+def call_library_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                     dout: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from one call of a library's `hd_attention_bwd` (the
+    library as `bind` set it up) on CUDA tensors it checks; counts
+    nothing."""
+    _check_cuda_inputs(q, k, v)
+    if q.dtype not in BACKWARD_DTYPES:
+        raise TypeError(f"attention backward kernel takes {BACKWARD_DTYPES}, "
+                        f"got {q.dtype}")
+    B, N, H, D = q.shape
+    for name, t, dtype, shape in (("out", out, q.dtype, q.shape),
+                                  ("dout", dout, q.dtype, q.shape),
+                                  ("lse", lse, torch.float32, (B, H, N))):
+        if t.device != q.device or t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"attention backward: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{dtype} {tuple(shape)} on {q.device}")
+    # Autograd may hand over a gradient that the kernel cannot read in
+    # 16-byte chunks (an expanded or misaligned view): copied, only then.
+    out, dout = (t if _chunk_aligned(t) else t.contiguous() for t in (out, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.hd_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, N, H, D, _DTYPE_CODES[q.dtype],
+            *(t.stride(i) for t in (q, k, v, out, dout) for i in range(3)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: "
+                           f"cudaError {err} (B={B}, N={N}, h={H}, d={D}, "
+                           f"{q.dtype})")
+    return dq, dk, dv
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor,
+                       dout: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), contiguous (B, N, h, d), of CUDA tensors: the backward
+    kernel (checked, counted; it raises where the kernel does not take the
+    inputs)."""
+    global launch_count
+    _require_cuda(q)
+    grads = call_library_bwd(load_kernel().lib, q, k, v, out, lse, dout)
+    if grads[0].numel():
+        launch_count += 1
+        launch_counts[BACKWARD_KERNEL] += 1
+    return grads
+
+
+class KernelBackwardAttention(torch.autograd.Function):
+    """`forward_fn(q, k, v) -> (out, lse)` forward, which saves q, k, v, out
+    and lse; `backward_fn(q, k, v, out, lse, grad_out) -> (dq, dk, dv)`
+    backward. On the card these are the kernels `attention_forward_lse` and
+    `attention_backward`; the CPU tests inject their plain twins.
+
+    The grads are contiguous (B, N, h, d) tensors: autograd carries them back
+    through the strided views of the packed projection they came from.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward_fn, backward_fn):
+        out, lse = forward_fn(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.backward_fn = backward_fn
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        dq, dk, dv = ctx.backward_fn(*ctx.saved_tensors, grad_out)
+        return dq, dk, dv, None, None
+
+
 class RecomputedBackwardAttention(torch.autograd.Function):
     """`forward_fn(q, k, v)` forward; the backward recomputes through
     `attention_reference` at the saved inputs and returns its grads (the
-    design of the JAX package's `_pallas_attention_bwd`).
+    design of the JAX package's `_pallas_attention_bwd`). It serves fp32
+    CUDA tensors only: bf16 and fp16 take `KernelBackwardAttention`.
 
     The grads are contiguous (B, N, h, d) tensors: autograd carries them back
     through the strided views of the packed projection they came from.
@@ -227,8 +460,11 @@ def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
     """Scaled-dot-product attention over (B, N, heads, head_dim) tensors.
 
     Without grad, the op `attention_fwd`: the CUDA kernel on the card, the
-    plain version on the CPU. With grad, CUDA tensors take the op inside
-    `RecomputedBackwardAttention`, CPU tensors autograd of the plain version.
+    plain version on the CPU. With grad, CPU tensors take autograd of the
+    plain version; bf16 and fp16 CUDA tensors `KernelBackwardAttention`
+    with the forward and backward kernels, fp32 ones
+    `RecomputedBackwardAttention` with the fp32 forward kernel. There is no
+    fallback: a kernel that cannot take the inputs raises.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
@@ -236,5 +472,8 @@ def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
                                     or v.requires_grad):
         if q.device.type == "cpu":
             return attention_reference(q, k, v)
+        if q.dtype in BACKWARD_DTYPES:
+            return KernelBackwardAttention.apply(
+                q, k, v, attention_forward_lse, attention_backward)
         return RecomputedBackwardAttention.apply(q, k, v, attention_fwd)
     return attention_fwd(q, k, v)

@@ -11,8 +11,10 @@ clock (each ends in a synchronize), then traces one more with
 torch.profiler and prints: the device time by kernel class, the device's
 busy and idle share of the traced step, the time of each of the step's
 ranges (train/forward, train/loss, train/backward, train/update: the
-optimizer, the gates and their blend, the EMA), the attention kernel's
-forward and its recomputed backward, and, traced alone at the step's
+optimizer, the gates and their blend, the EMA), the attention's forward
+kernel and its backward (the KernelBackwardAttention node: the backward
+kernel, and a copy of the incoming gradient where the kernel cannot read
+it as it lies), and, traced alone at the step's
 shapes, the DINO term's forward + backward. Prints one JSON line last.
 """
 
@@ -41,13 +43,16 @@ BATCH = 16
 FINE_TUNE = dict(dropout=0.15, ema_decay=0.99875, lr=1e-5, batch_size=BATCH,
                  init_from_npz=str(FLAGSHIP_NPZ))
 RANGES = ("train/forward", "train/loss", "train/backward", "train/update")
-ATTENTION_BACKWARD = "RecomputedBackwardAttentionBackward"
+ATTENTION_BACKWARD = "KernelBackwardAttentionBackward"
 
 
 def train_kernel_class(name: str) -> str:
-    """profile_serve's classes, with the backward's convolution kernels and
-    the optimizer's multi-tensor kernels named."""
+    """profile_serve's classes, with the attention's backward kernels (its
+    pre-pass, main kernel and dQ conversion), the backward's convolution
+    kernels and the optimizer's multi-tensor kernels named."""
     n = name.lower()
+    if "attention_bwd" in n:
+        return "attention backward (CUDA kernel)"
     if "wgrad" in n or "dgrad" in n:
         return "convolution"
     if "multi_tensor" in n or "foreach" in n:
@@ -132,6 +137,7 @@ def main() -> None:
     for name, us in by_kernel.items():
         by_class[train_kernel_class(name)] += us
     attention_fwd_us = by_class.get("attention (CUDA kernel)", 0.0)
+    attention_bwd_us = by_class.get("attention backward (CUDA kernel)", 0.0)
 
     # The DINO term alone at the step's shapes: forward + backward wrt the
     # prediction, bf16 ViT-S at 252², batch 16; its kernels' device time in
@@ -156,7 +162,8 @@ def main() -> None:
           f"peak memory {peak_gib:.2f} GiB")
     print(f"traced step: {traced_wall * 1e3:.2f} ms wall, {total_us / 1e3:.2f} "
           f"ms of kernels (busy {100 * busy:.1f}%, idle "
-          f"{100 * (1 - busy):.1f}%), attention launches {att.launch_count}")
+          f"{100 * (1 - busy):.1f}%), attention launches "
+          f"{dict(att.launch_counts)}")
     for cls, us in by_class.most_common():
         print(f"  {cls:28s} {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f}%")
     print("ranges: device time of the kernels each launched from the main "
@@ -166,8 +173,9 @@ def main() -> None:
         print(f"  {name:40s} {ranges[name] / 1e3:9.3f} ms  span "
               f"{spans[name] / 1e3:9.3f} ms")
     print(f"attention forward kernel {attention_fwd_us / 1e3:.3f} ms, its "
-          f"recomputed backward {ranges[ATTENTION_BACKWARD] / 1e3:.3f} ms "
-          f"({100 * ranges[ATTENTION_BACKWARD] / total_us:.2f}% of the step)")
+          f"backward {ranges[ATTENTION_BACKWARD] / 1e3:.3f} ms "
+          f"({100 * ranges[ATTENTION_BACKWARD] / total_us:.2f}% of the step; "
+          f"its kernels {attention_bwd_us / 1e3:.3f} ms)")
     print(f"DINO term alone, forward + backward: {dino_ms:.3f} ms of kernels")
     print("top kernels:")
     for name, us in by_kernel.most_common(15):
@@ -184,8 +192,10 @@ def main() -> None:
         "ranges_ms": {k: ranges[k] / 1e3 for k in (*RANGES, ATTENTION_BACKWARD)},
         "spans_ms": {k: spans[k] / 1e3 for k in RANGES},
         "attention_fwd_ms": attention_fwd_us / 1e3,
+        "attention_bwd_ms": attention_bwd_us / 1e3,
         "dino_fwd_bwd_ms": dino_ms,
-        "attention_launches": att.launch_count}))
+        "attention_launches": att.launch_count,
+        "attention_launches_by_kernel": dict(att.launch_counts)}))
 
 
 if __name__ == "__main__":

@@ -41,8 +41,10 @@ JAX_DTYPE = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1.5e-3}
 
 
-def tiled_attention(q, k, v, block_n=BLOCK_N, mask=True):
-    """(B, N, h, d) bf16/fp16 -> (B, N, h, d), in the kernel's order of work."""
+def tiled_attention(q, k, v, block_n=BLOCK_N, mask=True, return_lse=False):
+    """(B, N, h, d) bf16/fp16 -> (B, N, h, d), in the kernel's order of work;
+    with `return_lse` also the (B, h, N) fp32 log-sum-exp that the kernel's
+    lse instance writes, m·c + log2(l)."""
     B, N, H, D = q.shape
     c = (torch.tensor(1.4426950408889634, dtype=torch.float32)
          / torch.tensor(float(D)).sqrt())
@@ -62,7 +64,10 @@ def tiled_attention(q, k, v, block_n=BLOCK_N, mask=True):
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + p.to(q.dtype).float() @ vf[:, :, k0:k0 + block_n]
         m = m_new
-    return (acc / l).to(q.dtype).permute(0, 2, 1, 3)
+    out = (acc / l).to(q.dtype).permute(0, 2, 1, 3)
+    if return_lse:
+        return out, (m * c + torch.log2(l)).squeeze(-1)
+    return out
 
 
 def rel_err(a, b):
