@@ -10,13 +10,17 @@ From a clean checkout, with no arguments, it:
             cuDNN, so that every fp32 number below is full fp32;
   2. build  compiles the CUDA attention kernels with nvcc (or reuses the
             library built from the same source) and loads them; prints each
-            of the 23 tensor-core kernel instances' (the forward, the
-            forward that writes the lse and the backward, each in bf16 and
-            fp16 at d 16, 32, 64; fp32 at d 16 and 32 with one and two m16
-            tiles a warp, and at d 64) registers and spills (ptxas) and its
-            count of HMMA (tensor-core) instructions (cuobjdump -sass), and
-            fails if one has none or spills, or if the backward's pre-pass
-            or dQ conversion spills;
+            of the 28 tensor-core kernel instances' registers and spills
+            (ptxas) and its counts of the opcodes its route must show
+            (cuobjdump -sass): HGMMA (wgmma), UTMALDG (TMA loads) and
+            UTMASTG (TMA stores) for the wgmma forward and its lse instance
+            in bf16 and fp16 at d 32 and 64 and for the bf16 wgmma backward
+            at d 32, which also shows UTMAREDG (dQ's TMA reduce-add); HMMA
+            (mma.sync) for the mma.sync forward and its lse instance at d 16
+            and 32, the mma.sync backward at d 16, 32 and 64, and for fp32
+            at d 16 and 32 with one and two m16 tiles a warp, and at d 64;
+            fails if one lacks an opcode or spills, or if the backward's
+            pre-pass or dQ conversion spills;
   3. kernel holds the kernels against their plain PyTorch version on the
             card at the shapes the serve, path, train, loop, eval and cfg
             phases give them (the loop's probe at its own batch, 9; the CFG
@@ -25,7 +29,12 @@ From a clean checkout, with no arguments, it:
             catch a missing mask, and times kernel, plain version and
             scaled_dot_product_attention (CUDA events, median of 25, with
             the calls queued ahead of the card), and the wrapper's host time
-            per call;
+            per call; prints the kernel that ran at each shape (the C
+            dispatch's route: wgmma at d 32 from N 257, but not the fp16
+            backward, and the forward at d 64; mma.sync elsewhere) and
+            the bound, the largest of the products at the type's peak, the
+            bytes at the memory rate and the exponentials at the special-
+            function rate;
   4. serve  loads docs/assets/flagship256_r5_fp16.npz into an Enhancer (256²,
             max_batch 8, bf16, DPM++2M-5) and answers 3 requests of 8, 8
             and 3 images, checking outputs and that the bf16 kernel ran 20
@@ -110,14 +119,9 @@ From a clean checkout, with no arguments, it:
             a step, finite losses;
             prints the step time and peak memory;
   15. parallel  in spawned processes (this one holds no process group):
-            one rank over NCCL on cuda:0 runs cli train --zero1 at the
-            flagship width for 2 steps with a save, resumes from it with
-            --mesh_data 1 --mesh_model 1 for 2 more, and evaluate()s its
-            final checkpoint; it also runs ring attention at world 1 against the
-            plain version and one NCCL send/recv to itself. Then two gloo
-            ranks share cuda:0: a DDP step (mesh 2×1, global batch 16 at
-            256², bf16, the default loss with DINO and MS-SSIM, dropout 0),
-            a TP step (mesh 1×2, batch 8: the kernel on 4 heads) and a
+            two gloo ranks share cuda:0: a DDP step (mesh 2×1, global batch
+            16 at 256², bf16, the default loss with DINO and MS-SSIM,
+            dropout 0), a TP step (mesh 1×2, batch 8: the kernel on 4 heads) and a
             ZeRO-1 step (the forward and backward kernels 8 times each a
             rank), each held against one process on the same batch,
             t and noise (loss and gradient norm within PAR_BF16_RTOL), the
@@ -132,12 +136,12 @@ From a clean checkout, with no arguments, it:
   16. tools the port's tools, each as its own process (python -m
             hybrid_diffusion_tpu_torch...., as a user starts it): the bench
             at the flagship width (DDIM-100 sampling at 256², batch 16,
-            bf16, BENCH_REPS 2: one JSON line, a finite positive img/s, 400
+            bf16, BENCH_REPS 1: one JSON line, a finite positive img/s, 400
             attention launches a run, no backward; BENCH_MODE=train,
-            BENCH_REPS 3: 4 forward and 4 backward launches a step;
-            BENCH_MODE=attn: four lines, the kernel arm launching, its
-            forward + backward the backward kernel too, the plain arm
-            nothing), its JSON and `#` lines printed;
+            BENCH_REPS 3: 4 forward and 4 backward launches a step), its
+            JSON and `#` lines printed (its attention A/B, BENCH_MODE=attn,
+            only re-times what the kernel phase times, and is held on the
+            CPU by tests/test_torch_tools_bench.py);
             eval_flagship at the committed operating point
             (flagship256_r5_dpm5_eval.json's argv: the r5 npz, DPM++2M-5,
             73 val images a domain), its PSNR/SSIM printed beside the
@@ -151,7 +155,13 @@ From a clean checkout, with no arguments, it:
             and regen_cfg_grids of its cfg_params.npz, each writing JSON of
             finite values (exit 0, or 1 for a demo's own verdict: no
             traceback, and the verdict's keys in its JSON); all but the
-            bench run at once.
+            bench run at once, and beside them the parallel layer's NCCL
+            part, one spawned rank on cuda:0 (this process holds no process
+            group): cli train --zero1 at the flagship width for 2 steps
+            with a save, a resume from it with --mesh_data 1 --mesh_model 1
+            for 2 more, evaluate() of its final checkpoint, ring attention
+            at world 1 against the plain version and one NCCL send/recv to
+            itself.
 
 The kernel phase also holds the attention's forward and gradients through
 the autograd Function, on strided views of one packed projection: in bf16
@@ -183,6 +193,7 @@ import shutil
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -191,27 +202,27 @@ FLAGSHIP_NPZ = ROOT / "docs" / "assets" / "flagship256_r5_fp16.npz"
 BUDGET_S = 600.0
 T_START = time.perf_counter()
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, and FLOP/s of the
-# products by input type. The bound counts the products the function needs,
-# 4·B·h·N²·d, at the card's fastest rate for the type: fp32 products at the
-# TF32 tensor cores' 495 TFLOP/s, not the FMA units' 67. The fp32 kernel's
-# own design, three TF32 products a product (3xTF32), has a floor three
-# times that, printed beside it (tf32x3_floor_ms) and not used as the bound:
-# another split (for example fp16 parts with scaling) could need less.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12}
-# The H100 SXM5's special-function (exp2) rate, 3.9 T/s: "989 TFLOPS of FP16
-# matmul but only 3.9 TFLOPS of special functions" (Shah et al. 2024,
-# FlashAttention-3, section 3.3). Attention computes B·h·N² exponentials.
-EXP_PER_S = 3.9e12
+# The bound (bound_ms) is the largest of three times: the products the
+# function needs (4·B·h·N²·d forward) at the card's fastest rate for the
+# type, fp32 products at the TF32 tensor cores' 495 TFLOP/s, not the FMA
+# units' 67; the bytes (each input read once, each output written once) at
+# the memory rate; the exponentials (B·h·N² a forward or backward) at the
+# special-function rate (ops/attention.py: H100_PEAKS, bound_ms). The fp32
+# kernel's own design, three TF32 products a product (3xTF32), has a floor
+# three times the products', printed beside it (tf32x3_floor_ms) and not
+# used as the bound: another split (for example fp16 parts with scaling)
+# could need less.
+
 
 # Kernel vs the fp32 plain version, max abs error, by dtype and inputs.
 # bf16/fp16: the kernel rounds P to the input type before P·V and the output
 # once. Its CPU emulation (tests/test_torch_attention_tiled.py) errs by at
-# most 1.8e-3 (bf16) and 2.5e-4 (fp16) on random inputs at the shapes of
-# KERNEL_CASES (|out| about 0.03 to 0.07 there), and by 4.1e-3 and 5.1e-4 on
-# the mask-trap ones (|out| about 1). Each tolerance is that error times a
-# margin of 4.4 to 5.0; it is not looser than the error calls for. An
+# most 1.5e-3 (bf16) and 2.6e-4 (fp16) on random inputs at the shapes of
+# KERNEL_CASES (|out| about 0.03 to 0.07 there), and by 4.1e-3 and 5.8e-4 on
+# the mask-trap ones (|out| about 1), with the key tiles of the kernel the
+# dispatch picks (128 keys on wgmma, 64 on mma.sync; 1.8e-3 in bf16 with 64
+# everywhere). Each tolerance is that error times a margin of 4.3 to 5.6;
+# it is not looser than the error calls for. An
 # unmasked padded key (error ~1 on the mask trap) fails them. fp32: each
 # product is three TF32 products (about 2^-21 relative); the CPU emulation
 # (tests/test_torch_attention_tf32.py) errs by at most 8.1e-7 on the fp32
@@ -255,6 +266,9 @@ KERNEL_CASES = [
     (2, 256, 8, 16, "float32", "randn"),    # d 16, fp32
     (2, 1024, 8, 64, "float16", "randn"),
     (2, 256, 8, 16, "float16", "randn"),
+    # fp16 at d 32 and a ragged N of 40: the fp16 mma.sync instance, whose
+    # one 64-key tile holds 24 padded keys (the mask trap's error ~1).
+    (2, 40, 8, 32, "float16", "mask trap"),
 ]
 
 # The fp32 reverse mode's gradient case: the tparity phase's shape (64²,
@@ -312,10 +326,11 @@ CFG_RTOL = 2.0 ** -6
 # the train phase's flagship step, the cfg phase's train step (batch 80,
 # its four (N, d)) and the parallel phase's TP step (4 heads); at the CFG
 # sampler's 2B = 160 (forward + backward against SDPA's, as before the
-# backward kernel); and three ragged N = 1000 cases: bf16 and fp16 at d 32,
-# and fp16 at d 64 on mask-trap inputs, where a padded key that kept its P
-# (about 2^33, past fp16's range) or a query past N that read another row's
-# lse would make the gradients non-finite. Each is held against the fp32
+# backward kernel); and four ragged cases: N = 1000 in bf16 and fp16 at d
+# 32, and in fp16 at d 64 on mask-trap inputs, where a padded key that kept
+# its P (about 2^33, past fp16's range) or a query past N that read another
+# row's lse would make the gradients non-finite; N = 40 in fp16 at d 32 on
+# mask-trap inputs, the fp16 mma.sync instances (forward with lse, backward). Each is held against the fp32
 # plain version's autograd (and the forward at ATOL, or CFG_RTOL at the CFG
 # shapes), within att.BWD_RTOL (ops/attention.py, derived there from the
 # kernel's CPU emulation) of each gradient's largest value
@@ -332,7 +347,8 @@ CFG_TRAIN_CASES = [(CFG_TRAIN_BATCH, N, 8, d, "bfloat16", "randn")
                    for N, d in CFG_SHAPES]
 RAGGED_GRAD_CASES = [(4, 1000, 8, 32, "bfloat16", "randn"),
                      (4, 1000, 8, 32, "float16", "randn"),
-                     (2, 1000, 8, 64, "float16", "mask trap")]
+                     (2, 1000, 8, 64, "float16", "mask trap"),
+                     (2, 40, 8, 32, "float16", "mask trap")]
 KERNEL_GRAD_CASES = ([TRAIN_CASE] + CFG_TRAIN_CASES + CFG_CASES + [TP_CASE]
                      + RAGGED_GRAD_CASES)
 # The cfg phase's card-vs-CPU fp32 forward (batch 4, the trained weights):
@@ -394,16 +410,37 @@ def phase_done(name: str, t0: float, detail: str = "") -> None:
              f"({total:.1f}s)", 3)
 
 
+# The SASS opcodes each route's instances must show (cuobjdump -sass; names
+# as the H100's toolkit prints them): wgmma instances HGMMA and the TMA
+# loads and stores, the wgmma backward also dQ's TMA reduce-add; mma.sync
+# and the fp32 3xTF32 instances HMMA.
+ROUTE_OPCODES = {
+    "attention_fwd_wgmma_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
+    "attention_bwd_wgmma_kernel": ("HGMMA", "UTMALDG", "UTMASTG", "UTMAREDG"),
+    "attention_fwd_mma_kernel": ("HMMA",),
+    "attention_bwd_mma_kernel": ("HMMA",),
+    "attention_fwd_tf32_kernel": ("HMMA",),
+}
+# In bf16 and fp16: the wgmma forward and its lse instance at d 32 and 64
+# (8), the mma.sync forward and its lse instance at d 16 and 32 (8), the
+# mma.sync backward at d 16, 32, 64 (6); in bf16 the wgmma backward at d 32
+# (1); fp32: d 16 and 32 with one and two m16 tiles a warp, d 64 with one
+# (5).
+TENSOR_CORE_INSTANCES = 28
+
+
 def phase_build(att, cuda_build):
     """Build and load the library; check its kernels' resources and that
-    every kernel runs on the tensor cores."""
+    every kernel instance shows its route's opcodes (tensor cores, TMA)."""
     built = att.load_kernel()
     resources = cuda_build.kernel_resources(built.ptxas_log)
+    opcodes = sorted({op for ops in ROUTE_OPCODES.values() for op in ops})
     try:
         cuobjdump = cuda_build.find_cuobjdump()
-        hmma = cuda_build.sass_opcode_counts(built.path, "HMMA")
+        table = cuda_build.sass_opcode_table(built.path, opcodes)
     except (RuntimeError, OSError) as e:
-        fail(f"cannot count the kernels' tensor-core instructions: {e}")
+        fail(f"cannot count the kernels' instructions: {e}")
+    notes = cuda_build.wgmma_serialization_notes(built.ptxas_log)
     print(f"  nvcc {built.build_seconds:.2f}s cached={built.cached} "
           f"{built.path.name}; SASS read with {cuobjdump}", flush=True)
     tensor_core = 0
@@ -412,19 +449,24 @@ def phase_build(att, cuda_build):
         if inst is None:
             continue
         name, dtype, d = inst
-        n_hmma = hmma.get(sym, 0)
+        need = ROUTE_OPCODES[name.split("/")[0]]
+        counts = {op: table.get(sym, {}).get(op, 0) for op in need}
         print(f"  {name}<{str(dtype).split('.')[-1]}, d {d}>: "
               f"{res.registers} registers, {res.spill_bytes} bytes spilled, "
-              f"{n_hmma} HMMA", flush=True)
+              + ", ".join(f"{n} {op}" for op, n in counts.items())
+              + (f", ptxas serialized its wgmma ({', '.join(notes[sym])})"
+                 if sym in notes else ""), flush=True)
         tensor_core += 1
-        if n_hmma == 0 or res.spill_bytes:
-            fail(f"{name}<{dtype}, {d}> has {n_hmma} HMMA instructions "
-                 f"and spills {res.spill_bytes} bytes")
-    if tensor_core != 23:
+        if not all(counts.values()) or res.spill_bytes:
+            fail(f"{name}<{dtype}, {d}> has opcodes {counts} (each must be "
+                 f"there) and spills {res.spill_bytes} bytes")
+    if tensor_core != TENSOR_CORE_INSTANCES:
         fail(f"found {tensor_core} tensor-core kernel instances in ptxas's "
-             f"report, expected 23 (the forward, the forward with lse and "
-             f"the backward in bf16 and fp16 at d 16, 32, 64; fp32 twice at "
-             f"d 16 and 32, once at d 64)")
+             f"report, expected {TENSOR_CORE_INSTANCES} (in bf16 and fp16: "
+             f"the wgmma forward and its lse instance at d 32, 64, the "
+             f"mma.sync forward and its lse instance at d 16, 32, the "
+             f"mma.sync backward at d 16, 32, 64; in bf16 the wgmma backward "
+             f"at d 32; fp32 twice at d 16 and 32, once at d 64)")
     for sym, res in sorted(resources.items()):
         if "attention_bwd_" in sym and res.spill_bytes:
             fail(f"{sym} spills {res.spill_bytes} bytes")
@@ -488,19 +530,18 @@ def phase_kernel(att, torch, device_ms, host_ms):
         library_ms = device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * B * h * N * N * d
-        nbytes = 4.0 * B * N * h * d * q.element_size()
-        t_ops = flops / PEAK_FLOPS[dname]
-        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound_ms, bound_by = att.bound_ms(
+            flops, 4.0 * B * N * h * d * q.element_size(), B * h * N * N, dname)
         row = dict(B=B, N=N, h=h, d=d, dtype=dname, inputs=inputs,
                    kernel=att.KERNEL_BY_DTYPE[dtype],
+                   route=att.kernel_route(dtype, N, d),
                    max_abs_err=err, tol=atol, kernel_ms=kernel_ms,
                    kernel_host_ms=kernel_host_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   exp_floor_ms=B * h * N * N / EXP_PER_S * 1e3)
+                   bound_ms=bound_ms, bound_by=bound_by)
         if dname == "float32":
-            row["tf32x3_floor_ms"] = 3 * t_ops * 1e3
+            row["tf32x3_floor_ms"] = (3 * flops / att.H100_PEAKS["flops"][dname]
+                                      * 1e3)
         print("  kernel " + json.dumps(row), flush=True)
         rows[case] = row
     return rows
@@ -612,13 +653,14 @@ def phase_grad(att, torch, device_ms):
                 s_out = F.scaled_dot_product_attention(qt, kt, vt)
                 gt = g.transpose(1, 2)
                 # The function's inputs are q, k, v, out, lse and dout: it
-                # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each).
-                flops = 10.0 * B * h * N * N * d
-                nbytes = (8.0 * B * N * h * d * q.element_size()
-                          + 4.0 * B * h * N)
-                t_ops = flops / PEAK_FLOPS[dname]
-                t_bytes = nbytes / HBM_BYTES_PER_S
+                # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each), and
+                # P again (N² exponentials).
+                bwd_bound_ms, bwd_bound_by = att.bound_ms(
+                    10.0 * B * h * N * N * d,
+                    8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N,
+                    B * h * N * N, dname)
                 row.update(
+                    bwd_route=att.kernel_route(dtype, N, d, backward=True),
                     bwd_ms=device_ms(lambda: att.attention_backward(
                         q, k, v, o, lse, g), reps=15, inner=5),
                     plain_bwd_ms=device_ms(
@@ -627,22 +669,20 @@ def phase_grad(att, torch, device_ms):
                     sdpa_bwd_ms=device_ms(lambda: torch.autograd.grad(
                         s_out, (qt, kt, vt), gt, retain_graph=True),
                         reps=15, inner=5),
-                    bwd_bound_ms=max(t_ops, t_bytes) * 1e3,
-                    bwd_bound_by="operations" if t_ops >= t_bytes
-                    else "bytes",
-                    bwd_exp_floor_ms=B * h * N * N / EXP_PER_S * 1e3)
+                    bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by)
                 del s_out
         if timed:
-            flops = 12.0 * B * h * N * N * d    # forward 4, its vjp 8
-            nbytes = 8.0 * B * N * h * d * qkv.element_size()
-            t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
+            # forward 4 N²d products and N² exponentials, its vjp 8 and N²
+            fwd_bwd_bound_ms, fwd_bwd_bound_by = att.bound_ms(
+                12.0 * B * h * N * N * d,
+                8.0 * B * N * h * d * qkv.element_size(), 2.0 * B * h * N * N,
+                dname)
             row.update(
                 fwd_bwd_ms=device_ms(kernel_fwd_bwd, reps=15, inner=5),
                 plain_fwd_bwd_ms=device_ms(plain_fwd_bwd, reps=5, inner=2),
                 sdpa_fwd_bwd_ms=device_ms(sdpa_fwd_bwd, reps=15, inner=5),
-                fwd_bwd_bound_ms=max(t_ops, t_bytes) * 1e3,
-                fwd_bwd_bound_by="operations" if t_ops >= t_bytes
-                else "bytes")
+                fwd_bwd_bound_ms=fwd_bwd_bound_ms,
+                fwd_bwd_bound_by=fwd_bwd_bound_by)
         print("  grad " + json.dumps(row), flush=True)
         rows[case] = row
     return rows
@@ -1449,10 +1489,11 @@ def phase_vgg(att, torch, np) -> dict:
 # ---------------------------------------------------------------- parallel
 # The parallel phase runs in spawned processes: the smoke's own process
 # holds no process group. The card's machine has one H100, and NCCL refuses
-# two ranks on one device, so the phase takes two parts: one rank over
-# NCCL (the backend of multi-GPU runs) through train() and evaluate(), and
-# two ranks over gloo on cuda:0 for the DDP, TP and ZeRO-1 steps and the
-# sharded sampler, each held against one process. Two ranks sharing one
+# two ranks on one device, so the layer is driven in two parts: one rank
+# over NCCL (the backend of multi-GPU runs) through train() and evaluate()
+# (phase_world1, in the tools phase beside the tools), and two ranks over
+# gloo on cuda:0 for the DDP, TP and ZeRO-1 steps and the sharded sampler,
+# each held against one process (phase_parallel). Two ranks sharing one
 # card say nothing about scaling: their times are printed, not compared.
 #
 # Gloo's point-to-point send/recv does not take CUDA tensors (a probe on the
@@ -1784,9 +1825,10 @@ def _par_rank(rank, workdir):
                                 for c, r in bf16.items()})
 
 
-def phase_parallel(torch, np, tmp: Path) -> dict:
-    """The parallel layer on the card (see the comment above
-    GLOO_REFUSED_ON_CUDA); fails the run on any disagreement."""
+def phase_world1(tmp: Path) -> dict:
+    """The parallel layer's NCCL part (see the comment above
+    GLOO_REFUSED_ON_CUDA), one spawned rank on cuda:0; fails the run on a
+    wrong launch count. Runs beside the tools' chains (phase_tools)."""
     from hybrid_diffusion_tpu_torch.data.datasets import make_dataset
 
     length = 32
@@ -1801,7 +1843,6 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
     steps = len(make_dataset("synthetic-underwater", "train",
                              synthetic_length=length)) // PAR_BATCH
     (tmp / "w1").mkdir()
-    (tmp / "gloo").mkdir()
     t0 = time.perf_counter()
     w1 = _par_spawn(_par_world1, 1, tmp / "w1", argv, steps)[0]
     w1["seconds"] = time.perf_counter() - t0
@@ -1809,6 +1850,13 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
         fail(f"world-1 NCCL train launched the forward {w1['launches']} and "
              f"the backward {w1['bwd_launches']} times in {steps} steps, "
              f"expected 4 each a step")
+    return {"world1": w1}
+
+
+def phase_parallel(torch, np, tmp: Path) -> dict:
+    """The parallel layer's gloo part on the card (see the comment above
+    GLOO_REFUSED_ON_CUDA); fails the run on any disagreement."""
+    (tmp / "gloo").mkdir()
     t0 = time.perf_counter()
     ranks = _par_spawn(_par_rank, 2, tmp / "gloo")
     seconds = time.perf_counter() - t0
@@ -1861,7 +1909,7 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
     if sm["shape"] != [PAR_SAMPLER_IMAGES, PAR_FP32_SIZE, PAR_FP32_SIZE, 3] \
             or sm["max_levels"] > 1 or sm["share"] > PAR_SAMPLE_MAX_SHARE:
         fail(f"the sharded sampler against one process: {sm}")
-    return dict(world1=w1, ranks=ranks, gloo_seconds=seconds,
+    return dict(ranks=ranks, gloo_seconds=seconds,
                 tp_launches=tp_launches, tp_bwd_launches=tp_bwd_launches,
                 tp_shape=tp_shape)
 
@@ -1871,13 +1919,13 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
 # checkout on PYTHONPATH.
 TOOL_TIMEOUT_S = 240.0
 # CPU threads of each tool that runs beside others (the card's machine has
-# 8 cores, six chains run at once).
+# 8 cores, seven chains run at once).
 TOOL_THREADS = 2
 # The bench at the flagship width: DDIM-100 sampling at 256², batch 16,
-# bf16 (BENCH_REPS timed runs after the bench's warm-up), the train step at
-# batch 16 (DINO off), the attention A/B at (16, 1024, 8, 32). Every U-Net
-# call runs the 4 middle blocks' attention: 4 × 100 launches a sampling run.
-BENCH_SAMPLE_REPS = 2
+# bf16 (BENCH_REPS timed runs after the bench's warm-up) and the train step
+# at batch 16 (DINO off). Every U-Net call runs the 4 middle blocks'
+# attention: 4 × 100 launches a sampling run.
+BENCH_SAMPLE_REPS = 1
 BENCH_TRAIN_REPS = 3
 BENCH_DDIM_STEPS = 100
 # eval_flagship at the committed operating point: the argv that
@@ -1981,7 +2029,8 @@ def _finite_tree(obj) -> bool:
 def phase_tools(np, tmp: Path, loop_ckpt: Path) -> dict:
     """The bench, eval_flagship, sweep_sampler, export_params, rescore,
     the preview grid and the four demos, each as its own process on the
-    card; returns the phase's record."""
+    card, and beside them the world-1 NCCL rank (phase_world1); returns the
+    phase's record."""
     rec = {}
     # ------------------------------------------------------------ bench
     run = _run_tool("bench_sample", ["bench"], tmp, env=dict(
@@ -2011,30 +2060,17 @@ def phase_tools(np, tmp: Path, loop_ckpt: Path) -> dict:
              f"step")
     rec["bench_train"] = dict(line=line, record=record, notes=run["notes"],
                               seconds=run["seconds"])
-    run = _run_tool("bench_attn", ["bench"], tmp, env=dict(BENCH_MODE="attn"))
-    lines = _bench_lines(run, 4, "us")
-    kernel_launches = sum(r["attention_launches"] for r in run["records"]
-                          if r["arm"] == "kernel")
-    if any(r["attention_launches"] or r["attention_bwd_launches"]
-           for r in run["records"] if r["arm"] == "plain") \
-            or not kernel_launches or not all(
-                r["attention_bwd_launches"] for r in run["records"]
-                if r["arm"] == "kernel" and r["pass_"] == "fwd+bwd"):
-        fail(f"tools: the attention A/B launched {run['records']}: the plain "
-             f"arm must launch no kernel, the kernel arm must")
-    rec["bench_attn"] = dict(lines=lines, records=run["records"],
-                             notes=run["notes"], seconds=run["seconds"])
-    # The attn mode's count is of its timing loops, not of a path.
     rec["bench_launches"] = dict(
         sample=rec["bench_sample"]["record"]["attention_launches"],
-        train=rec["bench_train"]["record"]["attention_launches"],
-        attn=kernel_launches)
+        train=rec["bench_train"]["record"]["attention_launches"])
 
     # ------------------------------------------------------------ the rest
-    # Six chains at once, the bench done: their times are not measured
+    # Seven chains at once, the bench done: the six chains of tools and the
+    # parallel layer's world-1 NCCL rank. Their times are not measured
     # figures, and one tool's start-up (~8 s) would otherwise follow
-    # another's. A failing tool stops the run (fail() raises SystemExit,
-    # which its future re-raises here).
+    # another's. Their memory fits beside each other on the card, unlike
+    # the gloo ranks' (an OOM in a trial). A failing chain stops the run
+    # (fail() raises SystemExit, which its future re-raises here).
     committed = json.loads(COMMITTED_EVAL.read_text())
     weights = ROOT / committed["checkpoint"]
     chains = {"eval": lambda: _tools_eval(tmp, committed, weights),
@@ -2044,9 +2080,8 @@ def phase_tools(np, tmp: Path, loop_ckpt: Path) -> dict:
                   "demo_e2e"] + ["--keep", tmp / "demo_e2e"]),
               "demo_staged": lambda: _tools_demo(tmp, "demo_staged", DEMO_ARGV[
                   "demo_staged"] + ["--keep", tmp / "demo_staged"]),
-              "demo_cfg": lambda: _tools_cfg(tmp)}
-    from concurrent.futures import ThreadPoolExecutor
-
+              "demo_cfg": lambda: _tools_cfg(tmp),
+              "world1": lambda: phase_world1(tmp)}
     with ThreadPoolExecutor(max_workers=len(chains)) as pool:
         futures = {name: pool.submit(fn) for name, fn in chains.items()}
         for name, fut in futures.items():
@@ -2079,11 +2114,21 @@ def _tools_eval(tmp: Path, committed: dict, weights: Path) -> dict:
     out = {"eval": dict(results=ev["results"], seconds=run["seconds"],
                         committed={d: {k: r[k] for k in ("psnr", "ssim")}
                                    for d, r in committed["results"].items()})}
-    run = _run_tool("rescore", [
-        "scripts.rescore_metrics", "--root", ev_dir / "result",
-        "--size", "256", "--synthetic_length", "512",
-        "--out", tmp / "rescore.json"], tmp,
-        threads=TOOL_THREADS)
+    # The preview grid beside rescore: both only read the saved images.
+    grid = tmp / "grid.png"
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        grid_run = pool.submit(_run_tool, "preview_grid", [
+            "scripts.make_preview_grid", "--results",
+            ev_dir / "result" / "synthetic-underwater" / "val",
+            "--dataset", "synthetic-underwater", "--size", "256",
+            "--synthetic_length", "512", "--rows", "3", "--out", grid], tmp,
+            threads=TOOL_THREADS)
+        run = _run_tool("rescore", [
+            "scripts.rescore_metrics", "--root", ev_dir / "result",
+            "--size", "256", "--synthetic_length", "512",
+            "--out", tmp / "rescore.json"], tmp,
+            threads=TOOL_THREADS)
+        grid_seconds = grid_run.result()["seconds"]
     rs = json.loads((tmp / "rescore.json").read_text())
     for domain, got in ev["results"].items():
         if rs.get(domain, {}).get("n_images") != got["n_images"] or abs(
@@ -2091,18 +2136,11 @@ def _tools_eval(tmp: Path, committed: dict, weights: Path) -> dict:
             fail(f"tools: rescore {domain} {rs.get(domain)} against "
                  f"eval_flagship's {got}")
     out["rescore"] = dict(results=rs, seconds=run["seconds"])
-    grid = tmp / "grid.png"
-    run = _run_tool("preview_grid", [
-        "scripts.make_preview_grid", "--results",
-        ev_dir / "result" / "synthetic-underwater" / "val",
-        "--dataset", "synthetic-underwater", "--size", "256",
-        "--synthetic_length", "512", "--rows", "3", "--out", grid], tmp,
-        threads=TOOL_THREADS)
     img = _png_decode(grid.read_bytes())
     if img is None or img.shape != (3 * 256, 3 * 256, 3):
         fail(f"tools: the preview grid is "
              f"{None if img is None else img.shape}, expected (768, 768, 3)")
-    out["preview_grid"] = dict(shape=list(img.shape), seconds=run["seconds"])
+    out["preview_grid"] = dict(shape=list(img.shape), seconds=grid_seconds)
     return out
 
 
@@ -2188,20 +2226,45 @@ def fwd_bwd_fields(g: dict) -> dict:
     return {"fwd_bwd_shape": [g["B"], g["N"], g["h"], g["d"]],
             "fwd_bwd_ms": g["fwd_bwd_ms"],
             "fwd_bwd_bound_ms": g["fwd_bwd_bound_ms"],
+            "fwd_bwd_bound_by": g["fwd_bwd_bound_by"],
             "sdpa_fwd_bwd_ms": g["sdpa_fwd_bwd_ms"],
             "grad_max_abs_err": g["grad_max_abs_err"],
             "grad_rel_err": g["grad_rel_err"]}
 
 
+def forward_row(row: dict, launches: int) -> dict:
+    """A kernels-record row of a forward kernel from phase_kernel's row: the
+    kernel its dispatch chose, its launches on a main path, its error
+    against the fp32 plain version, its time, its host time, its bound,
+    the plain version's and SDPA's times."""
+    return {
+        "name": row["kernel"],
+        "shape": [row["B"], row["N"], row["h"], row["d"]],
+        "route": "cuda",
+        "kernel": row["route"],
+        "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
+        "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
+        "launches": launches,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["kernel_ms"],
+        "host_ms": row["kernel_host_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    }
+
+
 def backward_row(g: dict, launches: int, **extra) -> dict:
     """A kernels-record row of the backward kernel from phase_grad's row:
-    its launches on a main path, its error against the fp32 plain
-    version's autograd, its time beside its plain twin's and SDPA's
-    backward alone."""
+    the kernel its dispatch chose, its launches on a main path, its error
+    against the fp32 plain version's autograd, its time, its plain twin's
+    and SDPA's backward alone."""
     return {
         "name": "attention_bwd",
         "shape": [g["B"], g["N"], g["h"], g["d"]],
         "route": "cuda",
+        "kernel": g["bwd_route"],
         "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
         "replaces": "hybrid_diffusion_tpu/ops/attention.py:98",
         "launches": launches,
@@ -2213,7 +2276,6 @@ def backward_row(g: dict, launches: int, **extra) -> dict:
         "bound_ms": g["bwd_bound_ms"],
         "bound_by": g["bwd_bound_by"],
         "library_ms": g["sdpa_bwd_ms"],
-        "exp_floor_ms": g["bwd_exp_floor_ms"],
         "dq_spread": g["dq_spread"],
         **fwd_bwd_fields(g), **extra,
     }
@@ -2257,7 +2319,8 @@ def main() -> None:
     t0 = time.perf_counter()
     built = phase_build(att, cuda_build)
     phase_done("build", t0, f"nvcc {built.build_seconds:.2f}s, every "
-               f"tensor-core kernel on HMMA, no kernel spills")
+               f"tensor-core kernel shows its route's opcodes (HGMMA and TMA, "
+               f"or HMMA), no kernel spills")
 
     # ---------------------------------------------------------------- kernel
     t0 = time.perf_counter()
@@ -2547,7 +2610,7 @@ def main() -> None:
         par = phase_parallel(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    w1, r0 = par["world1"], par["ranks"][0]
+    r0 = par["ranks"][0]
     tp_row = rows[TP_CASE]
     for r, rank in enumerate(par["ranks"]):
         print("  parallel rank " + str(r) + " " + json.dumps({
@@ -2555,18 +2618,14 @@ def main() -> None:
                        launches=rec["launches"])
             for case, rec in rank["bf16"].items()}) + f" | {smi}", flush=True)
     print("  parallel " + json.dumps(dict(
-        world1=w1, bf16={c: {k: v for k, v in rec.items()
-                             if k in ("loss_rel", "grad_norm_rel")}
-                         for c, rec in r0["bf16"].items()},
+        bf16={c: {k: v for k, v in rec.items()
+                  if k in ("loss_rel", "grad_norm_rel")}
+              for c, rec in r0["bf16"].items()},
         fp32=r0["fp32"], sampler=r0["sampler"],
         gloo_refuses_on_cuda=list(GLOO_REFUSED_ON_CUDA))), flush=True)
     phase_done("parallel", t0, (
-        f"world 1 over NCCL: cli train --zero1 {w1['launches'] // 4} steps "
-        f"+ resume with --mesh_data 1 --mesh_model 1 to step "
-        f"{w1['resumed_to']} + evaluate() in {w1['seconds']:.1f}s, ring "
-        f"attention at world 1 within {w1['ring_err']:.1e}; two gloo ranks "
-        f"on cuda:0 in {par['gloo_seconds']:.1f}s: step ms a rank (median of "
-        f"the second) " + ", ".join(
+        f"two gloo ranks on cuda:0 in {par['gloo_seconds']:.1f}s: step ms a "
+        f"rank (median of the second) " + ", ".join(
             f"{c} {m:.1f}" for c, m in r0["step_ms_median"].items())
         + "; bf16 vs one process (loss, grad norm rel, bound "
         f"{PAR_BF16_RTOL:.2e}) " + ", ".join(
@@ -2594,12 +2653,11 @@ def main() -> None:
         tl = phase_tools(np, tools_tmp, loop_ckpt)
     finally:
         shutil.rmtree(tools_tmp, ignore_errors=True)
-    for name in ("bench_sample", "bench_train", "bench_attn"):
+    for name in ("bench_sample", "bench_train"):
         for note in tl[name]["notes"]:
             print("  " + note, flush=True)
-        for line in tl[name].get("lines", [tl[name].get("line")]):
-            print("  " + json.dumps(line), flush=True)
-    sample, train_b = tl["bench_sample"], tl["bench_train"]
+        print("  " + json.dumps(tl[name]["line"]), flush=True)
+    sample, train_b, w1 = tl["bench_sample"], tl["bench_train"], tl["world1"]
     ev_res, committed = tl["eval"]["results"], tl["eval"]["committed"]
     print("  tools " + json.dumps({k: v for k, v in tl.items()
                                    if not k.startswith("bench")}), flush=True)
@@ -2609,21 +2667,21 @@ def main() -> None:
         f"{[round(x, 3) for x in sample['record']['wall_s']]} s, "
         f"{sample['record']['launches_per_run']:.0f} launches a run, one "
         f"U-Net call {sample['record']['unet_call_device_ms']} ms on the "
-        f"card), train {train_b['line']['value']} steps/s, "
-        + ", ".join(f"{ln['metric'].split(' (')[0]} {ln['value']}"
-                    for ln in tl["bench_attn"]["lines"])
+        f"card), train {train_b['line']['value']} steps/s"
         + "; eval_flagship (r5 npz, DPM++2M-5, 73 val a domain) "
         + ", ".join(f"{d} PSNR {r['psnr']} SSIM {r['ssim']} (committed "
                     f"{committed[d]['psnr']} / {committed[d]['ssim']})"
                     for d, r in ev_res.items())
         + f"; rescore, preview grid, sweep (ddim:15, dpm++2m:5), export "
         f"({tl['export']['sidecar']['subtree']}) + eval, "
-        + ", ".join(f"{n} rc {tl[n]['rc']} {tl[n]['seconds']:.1f}s"
-                    for n in DEMO_ARGV)
-        + f"; seconds " + ", ".join(
+        + ", ".join(f"{n} rc {tl[n]['rc']}" for n in DEMO_ARGV)
+        + f"; world 1 over NCCL: cli train --zero1 {w1['launches'] // 4} "
+        f"steps + resume with --mesh_data 1 --mesh_model 1 to step "
+        f"{w1['resumed_to']} + evaluate(), ring attention at world 1 within "
+        f"{w1['ring_err']:.1e}; seconds " + ", ".join(
             f"{n} {tl[n]['seconds']:.1f}" for n in
-            ("bench_sample", "bench_train", "bench_attn", "eval", "rescore",
-             "preview_grid", "sweep", "export")) + f" | {smi}"))
+            ("bench_sample", "bench_train", "eval", "rescore", "preview_grid",
+             "sweep", "export", *DEMO_ARGV, "world1")) + f" | {smi}"))
 
     # Each kernel at the shape the serve phase gave it, with its launches
     # there: bf16 in the bf16 calls, fp32 in the full-precision request.
@@ -2637,21 +2695,10 @@ def main() -> None:
                    (rows[FP32_SERVE_CASE], fp32_serve_launches)):
         g = grad_of[row["kernel"]]
         kernels.append({
-            "name": row["kernel"],
-            "shape": [row["B"], row["N"], row["h"], row["d"]],
-            "route": "cuda",
-            "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
-            "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
-            "launches": n,
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["kernel_ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            **forward_row(row, n),
             "bench_launches": (tl["bench_launches"]
                                if row["kernel"] == "attention_fwd" else
-                               dict(sample=0, train=0, attn=0)),
+                               dict(sample=0, train=0)),
             "train_launches": (train["launches"]
                                if row["kernel"] == "attention_fwd" else 0),
             "loop_launches": (lp["launches"]
@@ -2665,38 +2712,15 @@ def main() -> None:
     for case in CFG_CASES:
         row, g = rows[case], grad_rows[case]
         kernels.append({
-            "name": row["kernel"],
-            "shape": [row["B"], row["N"], row["h"], row["d"]],
-            "route": "cuda",
-            "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
-            "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
-            "launches": cf["launches_by_shape"][f"N{row['N']} d{row['d']}"],
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["kernel_ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            **forward_row(row, cf["launches_by_shape"][
+                f"N{row['N']} d{row['d']}"]),
             **fwd_bwd_fields(g),
         })
     # The bf16 kernel on the head-sharded shape, with its launches in the
     # parallel phase's TP steps (both ranks).
     g = grad_rows[TP_CASE]
-    kernels.append({
-        "name": tp_row["kernel"],
-        "shape": [tp_row["B"], tp_row["N"], tp_row["h"], tp_row["d"]],
-        "route": "cuda",
-        "source": "hybrid_diffusion_tpu_torch/csrc/attention.cu",
-        "replaces": "hybrid_diffusion_tpu/ops/attention.py:63",
-        "launches": par["tp_launches"],
-        "max_abs_err": tp_row["max_abs_err"],
-        "ms": tp_row["kernel_ms"],
-        "plain_ms": tp_row["plain_ms"],
-        "bound_ms": tp_row["bound_ms"],
-        "bound_by": tp_row["bound_by"],
-        "library_ms": tp_row["library_ms"],
-        **fwd_bwd_fields(g),
-    })
+    kernels.append({**forward_row(tp_row, par["tp_launches"]),
+                    **fwd_bwd_fields(g)})
     # The backward kernel at the shapes the training paths gave it, with its
     # launches there: the train phase's flagship steps (the loop, vgg and
     # bench steps beside them), the cfg phase's train steps by shape, the

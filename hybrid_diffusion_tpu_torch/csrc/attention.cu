@@ -4,11 +4,15 @@
 // Replaces the TPU kernel hybrid_diffusion_tpu/ops/attention.py:63,
 // _pallas_attention (body _attention_kernel): out = softmax(q·kᵀ/√d)·v for
 // every (batch, head) slice, with fp32 scores and softmax and the output in
-// the input dtype. Two kernels, chosen by dtype in hd_attention_fwd, both on
-// the tensor cores (mma.sync), FlashAttention-2-style:
+// the input dtype. By dtype (hd_attention_fwd), and for bf16/fp16 by (N, d)
+// as measured on an H100 (mma_fwd; PERF.md):
 //
-//   attention_fwd_mma_kernel (bf16, fp16): m16n8k16 products, fp32
-//     accumulation, P rounded to the input type;
+//   attention_fwd_wgmma_kernel (bf16, fp16 at d 32 from N = WG_MIN_N, 257,
+//     and at d 64): Hopper's warpgroup products (wgmma) fed by TMA,
+//     FlashAttention-3-style; P rounded to the input type;
+//   attention_fwd_mma_kernel (bf16, fp16 at d 16, and at d 32 below N 257:
+//     the CFG model's shapes, where it was faster): the Ampere-style
+//     mma.sync kernel of the same arithmetic;
 //   attention_fwd_tf32_kernel (fp32): every product as three m16n8k8 TF32
 //     products (3xTF32), fp32-accurate, P kept in fp32.
 //
@@ -19,41 +23,46 @@
 //   bytes       4·B·N·h·d·2 = 16.8 MB   -> 5.0 us at 3.35 TB/s (10 us in fp32)
 //   exponentials B·h·N² = 67.1 M        -> about 17 us at the H100's ~3.9 T/s
 //                                          special-function rate
-// The exponentials, not the products, are the real floor in bf16 at d 32. In
-// fp32 the design below computes each product as three TF32 products, so
-// its own floor is 3 × 17 = 52 us.
+// The exponentials, not the products, are the real floor in bf16 at d 16 and
+// 32. In fp32 the design below computes each product as three TF32 products,
+// so its own floor is 3 × 17 = 52 us.
 //
-// What the bf16/fp16 design does about each:
-// - Operations: both products run as mma.sync (bf16/fp16 in, fp32 out). One
-//   block of MMA_WARPS (4) warps owns 16·MMA_M_TILES·MMA_WARPS (128) queries
-//   of one (batch, head) slice: a (8, 64) grid of 512 blocks at the flagship.
-//   Each warp keeps its MMA_M_TILES (2) m16 tiles of queries as A fragments
-//   in registers for the whole key loop (loaded once by ldmatrix; Q is not
-//   pre-scaled, which would round it differently) and walks the keys in
-//   tiles of MMA_BLOCK_N (64). K fragments come from ldmatrix as they lie (a
-//   key row with d contiguous is the column-major B operand), V
-//   fragments from ldmatrix.trans; each feeds the products of every m16 tile
-//   of the warp, which halves the shared-memory reads per product against
-//   one m16 tile a warp (the reads, 512 bytes an ldmatrix.x4, otherwise take
-//   about as long as the products at d 32 and longer at d 64). The scores'
-//   C fragments, rounded to the input type, are reused in registers as the
-//   A fragments of P·V: no score or probability touches shared or device
-//   memory. Rounding P to the input type before P·V is what the JAX main
-//   path does (_xla_attention: probs.astype(q.dtype)).
+// The bf16/fp16 forward on wgmma (attention_fwd_wgmma_kernel):
+// - Products: a block is one producer warp and two consumer warpgroups; a
+//   work tile is 128 queries of one (batch, head), 64 a consumer. S = Q·Kᵀ is
+//   a wgmma with both operands read from shared memory by descriptor; P
+//   stays in registers as the A operand of O += P·V, whose B operand, V, is
+//   read transposed (d contiguous) by its descriptor: no ldmatrix, no
+//   transposition pass.
+// - Bytes: the producer's one thread issues every copy by TMA (a 4-D tensor
+//   map over the strided (B, N, h, d) view: the packed q|k|v projection is
+//   never split), into a ring of WGF_STAGES K/V tiles of 128 keys and two Q
+//   slots, each with a full and an empty mbarrier. The grid is persistent
+//   (one block an SM), so the next work tile's Q and K/V load under this
+//   one's epilogue. TMA's swizzle (32, 64, 128 bytes at d 16, 32, 64: a row
+//   of d values) is the one the wgmma descriptors read. The output goes
+//   through a swizzled staging tile to a TMA store.
 // - Exponentials: log2(e)/√d is folded into one FFMA per score,
 //   p = exp2(s·c − m·c), evaluated by ex2.approx; the online softmax keeps a
-//   running max per row (reduced over the 4 lanes of a quad with shuffles)
-//   and a per-lane partial sum, reduced once at the end.
-// - Bytes: q, k and v are read once per query tile with 16-byte cp.async
-//   copies straight from their strided (B, N, h, d) layout (the packed q|k|v
-//   projection is never split or transposed), into two K/V tile buffers in
-//   shared memory, so the next tile's copy overlaps this tile's math. The
-//   16-byte chunks are XOR-swizzled so that ldmatrix does not collide on
-//   banks. The output is staged in shared memory and written in
-//   16-byte stores. Keys at or past N are zero-filled by the copy and masked
-//   to −inf before the max; query rows past N are computed and not stored.
-//   This route needs 16-byte-aligned pointers and strides that are multiples
-//   of 8 elements (the wrapper checks; the model's packed views meet them).
+//   running max per row (four chains, then the 4 lanes of a quad with
+//   shuffles) and per-lane partial sums, reduced once at the end. P·V goes
+//   in two parts of 64 keys, the second part's exponentials under the
+//   first part's products. The two consumers' softmax and products
+//   interleave on the SM.
+// - What did not pay (attention_variants.py, PERF.md): a second score
+//   accumulator so that the next tile's S overlaps this tile's softmax (it
+//   needs more than the 168 registers a thread of a nine-warp block, and
+//   ptxas serialized the wgmma), FA3's ping-pong of the two consumers, K/V
+//   tiles of 64 keys, S as two products of 64 keys, three consumers, P·V
+//   at once or in four parts.
+// - Ragged N: TMA zero-fills rows past N and does not store them; keys past
+//   N are masked to −inf before the max.
+// The mma.sync forward is FlashAttention-2-style: 4 warps own 128 queries,
+// two m16 tiles a warp, K/V tiles of 64 keys by cp.async into XOR-swizzled
+// shared tiles, ldmatrix fragments, P reused in registers as the A fragment
+// of P·V.
+// Both routes need 16-byte-aligned pointers and strides that are multiples
+// of 8 elements (the wrapper checks; the model's packed views meet them).
 //
 // The fp32 kernel takes the place of a SIMT kernel (one query a thread, a
 // chain of dependent FMAs a key), which was bounded by the 67 TFLOP/s of the
@@ -99,19 +108,20 @@
 // Keys at or past N are zero-filled and masked as above. This route needs
 // 16-byte-aligned pointers and strides in multiples of 4 elements.
 //
-// The backward (bf16, fp16), FlashAttention-2-style, replaces the reverse
-// mode of the TPU kernel: _pallas_attention_bwd (hybrid_diffusion_tpu/ops/
-// attention.py:98), the vjp of _xla_attention at the saved q, k, v, which
-// the port ran as autograd of its plain version (N² fp32 scores and
-// probabilities written to device memory several times over). It computes
-// dq, dk, dv from q, k, v, the forward's output O and its per-row
-// log-sum-exp (the forward's LSE instance writes lse = m·c + log2(l), c =
-// log2(e)/√d, at its epilogue), and dO; three kernels on one stream, one
-// launch to the wrapper:
+// The backward (bf16, fp16) replaces the reverse mode of the TPU kernel:
+// _pallas_attention_bwd (hybrid_diffusion_tpu/ops/attention.py:98), the vjp
+// of _xla_attention at the saved q, k, v. It computes dq, dk, dv from q, k,
+// v, the forward's output O and its per-row log-sum-exp (the forward's LSE
+// instance writes lse = m·c + log2(l), c = log2(e)/√d, at its epilogue), and
+// dO; three kernels on one stream, one launch to the wrapper:
 //   attention_bwd_prep_kernel  D = rowsum(dO∘O) in fp32 (FA2's identity,
 //     for rowsum(P∘dP)), and the fp32 dQ accumulator set to zero;
-//   attention_bwd_mma_kernel   one block a (key tile of 64, batch·head),
-//     walking every query tile;
+//   attention_bwd_wgmma_kernel one block a (key tile of 128, batch·head),
+//     walking every query tile, in bf16 at d 32 from N = WG_MIN_N (257);
+//     attention_bwd_mma_kernel, 64 keys a block on mma.sync, elsewhere (d 16,
+//     d 64, and d 32 below N 257: the CFG model's shapes, where it was
+//     faster, and d 64, where the wgmma one spilled; fp16 at every N, where
+//     ptxas serialized the wgmma one and it was slower; mma_bwd);
 //   attention_bwd_dq_kernel    dQ rounded once from fp32 to T.
 // Rounding follows the vjp of _xla_attention where it costs nothing: S and
 // P in fp32, P rounded to T for dV = Pᵀ·dO, dP = dO·Vᵀ accumulated in fp32
@@ -128,37 +138,34 @@
 // so the products and the exponentials, not the bytes.
 //
 // Where the design had to choose:
-// - The two transposes. Pᵀ feeds dV and dSᵀ feeds dK. Each warp owns 16
-//   keys as an m16 tile and computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with the
-//   keys on the M side, so that Pᵀ and dSᵀ come out as C fragments that are
-//   the A fragments of dV += Pᵀ·dO and dK += dSᵀ·Q as they lie (the
-//   forward's trick for P·V); Q and dO are read with ldmatrix for the
-//   first two products and ldmatrix.trans for the last two. Only dQ = dS·K
-//   needs dS the other way round: each warp stores its dSᵀ rows in a
-//   swizzled shared tile, and after a barrier warp w reads queries
-//   16w..16w+15 of it with ldmatrix.trans as dS's A fragments.
-// - dQ across key blocks: fp32 atomics (float2 atomicAdd, red.global) into
-//   a scratch the pre-pass zeroes, then the conversion. A second kernel
-//   over query tiles would be deterministic but recompute S, P and dP (a
-//   half more products). So dQ's low bits vary from run to run (the smoke
-//   prints the spread); dK and dV are written once, by one block, and
-//   repeat exactly.
-// - Ragged N. Keys at or past N are zero-filled by the copies and get P =
-//   0 (a padded key's exp2(0 − lse) would otherwise reach 2^33 on inputs
-//   whose real scores are all very negative, past fp16's range, and turn
-//   dQ into inf·0). Queries at or past N are zero-filled, their lse is
-//   taken as +inf (P = 0 exactly) and their D as 0, so lse and D are never
-//   read past N; their dQ rows are not stored, nor dK and dV rows past N.
+// - The two transposes. Pᵀ feeds dV and dSᵀ feeds dK. Each consumer
+//   warpgroup owns 64 keys and computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with the
+//   keys on the M side, so that Pᵀ and dSᵀ come out as accumulators that are
+//   the register A operands of dV += Pᵀ·dO and dK += dSᵀ·Q as they lie; dO
+//   and Q are read transposed by their descriptors. Only dQ = dS·K needs dS
+//   the other way round: each consumer stores its dSᵀ in a swizzled shared
+//   tile, which dQ's wgmma reads transposed.
+// - dQ across key blocks: each consumer's fp32 partial over its 64 keys goes
+//   through shared memory to one asynchronous TMA reduce-add (cp.reduce.
+//   async.bulk.tensor .add.f32) into a scratch the pre-pass zeroes, issued
+//   by one thread, where the mma.sync kernel had every thread issue float2
+//   atomics. A second kernel over query tiles would be deterministic but
+//   recompute S, P and dP (a half more products). So dQ's low bits vary from
+//   run to run (the smoke prints the spread); dK and dV are written once, by
+//   one block, and repeat exactly.
+// - Ragged N. Keys at or past N are zero-filled and get P = 0 (a padded
+//   key's exp2(0 − lse) would otherwise reach 2^33 on inputs whose real
+//   scores are all very negative, past fp16's range, and turn dQ into
+//   inf·0). Queries at or past N are zero-filled and get P = 0 too (the
+//   wgmma kernel masks their columns, whose flat lse and D may be the next
+//   (batch, head)'s; the mma.sync kernel takes their lse as +inf); the TMA
+//   stores and reduce-adds write no row past N.
 // - grad_out's layout. The kernel reads dO by strides as it reads q, k, v;
 //   the wrapper copies it only where it is not in 16-byte chunks.
-// - Registers. dK and dV accumulate in fp32 registers, d/8 n8 tiles each
-//   for the warp's 16 keys; K's A fragments stay in registers, V's are read
-//   at each k16 step (holding both took d 64 past 255 registers and
-//   spilled), and at d 32 and 64 a query step runs in two sub-steps of 32
-//   queries (bwd_sub_m). The smoke refuses a spill.
-// - dQ's cost. Left out (a diagnostic variant in attention_variants.py),
-//   dQ's products and atomics take 13% of the backward at the train shape
-//   on an H100 (PERF.md).
+// - Filling the card. 128 keys a block (two consumers of 64, eight warps,
+//   255 registers a thread): the train shape's B·h = 128 gives 1024 blocks
+//   (7.8 waves of one block an SM), the head-sharded one's 32 gives 256 (1.9
+//   waves).
 // - Scale. 1/√d enters dS once; the exp2 constant c carries it for P alone.
 //
 // Measured times: PERF.md.
@@ -166,6 +173,7 @@
 // The output is a contiguous (B, N, h, d) tensor; the innermost (d) stride of
 // q, k and v must be 1. A ragged N is masked in every kernel.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -182,7 +190,7 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: the tensor-core kernel.
+// bf16 / fp16 on mma.sync: the forward at d 32 and N < WG_MIN_N (launch).
 
 constexpr int MMA_WARPS = 4;    // warps per block
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
@@ -533,7 +541,8 @@ attention_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 backward.
+// bf16 / fp16 backward: the pre-pass and dQ's conversion (every route), and
+// the mma.sync kernel at d 32 and N < WG_MIN_N (launch_bwd).
 
 constexpr int BWD_WARPS = 4;                 // warps per block
 constexpr int BWD_THREADS = 32 * BWD_WARPS;
@@ -854,6 +863,877 @@ attention_bwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   store(dv_acc, dv);
   store(dk_acc, dk);
+}
+
+// ---------------------------------------------------------------------------
+// The Hopper layer: TMA tensor maps, an mbarrier ring, wgmma descriptors.
+
+constexpr int WG_THREADS = 128;  // a warpgroup
+// The register file is split among the SM's four sub-partitions, each
+// holding every fourth warp of a block: a ninth warp (a producer warp beside
+// two consumer warpgroups) puts three warps on one of them and caps every
+// thread at 168 registers, as a producer warpgroup does (12 warps); eight
+// warps have 255. ptxas kept the 168 under setmaxnreg and spilled (PERF.md).
+constexpr int WG_ROWS = 64;      // rows of a wgmma tile (M)
+// Where the mma.sync kernels above run in place of the wgmma ones, as
+// measured on an H100 (attention_variants.py; PERF.md): at d 16 (the
+// forward and the backward), at d 32 below N = WG_MIN_N, the backward at
+// d 64 (there the wgmma one spills) and the fp16 backward at every N (ptxas
+// serializes its wgmma instance, C7517 and C7514, which ran 5% slower than
+// the mma.sync one at (16, 1024, 8, 32)). mma_fwd_built: the d the mma.sync
+// forward instances are built for; wgf_built, wgb_built: the wgmma ones'.
+constexpr int WG_MIN_N = 257;
+__host__ __device__ constexpr bool mma_fwd(int N, int D) {
+  return D == 16 || (D == 32 && N < WG_MIN_N);
+}
+__host__ __device__ constexpr bool mma_bwd(int N, int D, bool fp16) {
+  return fp16 || D != 32 || N < WG_MIN_N;
+}
+__host__ __device__ constexpr bool mma_fwd_built(int D) { return D <= 32; }
+__host__ __device__ constexpr bool wgf_built(int D) { return D != 16; }
+__host__ __device__ constexpr bool wgb_built(int D, bool fp16) { return !fp16 && D == 32; }
+
+// Byte offset `off` in a tile whose rows are permuted by TMA's swizzle of SW
+// bytes (32, 64 or 128): the 16-byte chunk index (bits 4..) XOR the bits 7..
+// of the offset, as TMA writes the tile and wgmma reads it. Tiles start on a
+// 1024-byte boundary, so the pattern is the same relative to the tile.
+template <int SW>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// A wgmma shared-memory descriptor of a tile of rows of SW bytes (the
+// swizzle span) at `addr`: the stride between 8-row groups `sbo` in bytes;
+// the leading offset is unused (every operand is one swizzle atom wide).
+// Moving along the atom (a k16 step of a K-major operand) adds to `addr`.
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo) {
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Arrives, and expects `bytes` more of asynchronous copies in this phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete. The loop stays inside
+// the asm, so that ptxas sees no divergent path ahead of the wgmma that
+// follow (which it would serialize). A wait that never ends (a lost
+// arrival) traps after 2^22 tries: the launch fails, the card does not hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 4194304;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Orders this thread's shared-memory writes before later asynchronous-proxy
+// accesses (wgmma operands, TMA stores and reductions).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1..15) over `count` threads (a warpgroup's 128).
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+
+// TMA: one thread copies a box between a 4-D tensor map (d, h, N, B) and
+// shared memory. Loads complete on an mbarrier; stores and fp32 reduce-adds
+// are bulk groups of the issuing thread.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int c0,
+                                               int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// At most N of this thread's bulk groups still reading shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_f2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// After a wgmma wait: the accumulators' registers are written here, so that
+// the compiler reads them after the wait and not before. Before a
+// wgmma.fence: the registers a wgmma reads are final here, so that the
+// compiler does not compute them inside the wgmma's pipeline stage (ptxas
+// would then serialize the wgmma).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// One m64nNk16 wgmma step, fp32 accumulation, T = bf16 or fp16: d (N/2
+// registers a thread) = A·B + (scale_d ? d : 0). wgmma_ss reads A and B by
+// shared-memory descriptors, wgmma_rs A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows); TA, TB transpose the operand read from
+// shared memory (1: M or N contiguous, 0: K contiguous). The accumulator
+// layout is the m16n8 C fragment of each warp's 16 rows, repeated over N/8
+// tiles: d[4j..4j+3] = rows g, g, g+8, g+8, columns 8j + 2t, +1.
+template <typename T, int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         uint32_t scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "an N the kernels use");
+  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
+  if constexpr (N == 32) {
+    if constexpr (BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+          "%16, %17, p, 1, 1, %19, %20;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+          : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+    if constexpr (!BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+          "%16, %17, p, 1, 1, %19, %20;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+          : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
+    if constexpr (BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+          "%32, %33, p, 1, 1, %35, %36;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+          : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+    if constexpr (!BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+          "%32, %33, p, 1, 1, %35, %36;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+          : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 128) {
+    if constexpr (BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+          "%64, %65, p, 1, 1, %67, %68;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+    if constexpr (!BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+          "%64, %65, p, 1, 1, %67, %68;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+}
+
+template <typename T, int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t b, uint32_t scale_d) {
+  static_assert(N == 32 || N == 64, "an N the kernels use");
+  constexpr bool BF16 = std::is_same_v<T, __nv_bfloat16>;
+  if constexpr (N == 32) {
+    if constexpr (BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+          "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+    if constexpr (!BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+          "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 64) {
+    if constexpr (BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+          "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+    if constexpr (!BF16)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+          "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+  }
+}
+
+// The forward on wgmma (bf16, fp16), FlashAttention-3's shape: a persistent
+// grid of blocks of two consumer warpgroups and one producer warp. A work
+// tile is WGF_BLOCK_M queries of one (batch, head); each consumer owns 64 of
+// them. The producer's one thread issues every copy by TMA, into a ring of
+// WGF_STAGES K/V tiles and two Q slots (the next work tile's Q loads under
+// this one); each consumer computes
+//   S  = Q·Kᵀ   wgmma, A: its Q rows, B: the K tile (both K-major)
+//   O += P·V    wgmma, A: P in registers, B: the V tile (transposed: d
+//               contiguous)
+// with the online softmax of the mma.sync kernel in between (log2(e)/√d
+// folded into one FFMA, P rounded to T as the A fragment), and issues the
+// next tile's S right after this tile's P·V. Its output goes through a
+// swizzled staging tile to a TMA store, which drops rows past N; keys past N
+// (TMA's zero fill) are masked to −inf. The producer is a ninth warp, which
+// caps every thread at 168 registers: one accumulator of scores (64
+// registers a thread at 128 keys) fits, two (to overlap the next tile's S
+// with this tile's softmax) do not, and with eight warps and the loads
+// issued by a consumer thread, or with two accumulators, the kernel was
+// slower (PERF.md).
+constexpr int WGF_CONSUMERS = 2;          // consumer warpgroups a block
+constexpr int WGF_THREADS = WGF_CONSUMERS * WG_THREADS + 32;
+constexpr int WGF_BLOCK_M = WGF_CONSUMERS * WG_ROWS;  // queries a work tile
+constexpr int WGF_BLOCK_N = 128;          // keys a K/V tile
+constexpr int WGF_STAGES = 3;             // K/V tiles in the ring
+constexpr int WGF_Q_SLOTS = 2;            // Q tiles in flight (the next work tile's)
+constexpr int WGF_PV_PARTS = 2;           // P·V of a K/V tile in this many parts
+
+constexpr int wgf_smem_bytes(int D) {
+  return 1024 +  // to align the tiles to 1024 bytes
+         (WGF_Q_SLOTS * WGF_BLOCK_M + 2 * WGF_STAGES * WGF_BLOCK_N + WGF_BLOCK_M) * 2 * D +
+         8 * 2 * (WGF_Q_SLOTS + WGF_STAGES);
+}
+
+template <typename T, int D, bool LSE>
+__global__ void __launch_bounds__(WGF_THREADS, 1)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap o_map,
+                           float* __restrict__ lse, int N, int H, int BH, float scale_log2) {
+  constexpr int ROW = 2 * D;           // bytes of a row of d values: the swizzle span
+  constexpr uint32_t SBO = 8 * ROW;    // bytes between 8-row groups
+  constexpr int Q_BYTES = WGF_BLOCK_M * ROW;
+  constexpr int KV_BYTES = WGF_BLOCK_N * ROW;
+  constexpr int O_BYTES = WG_ROWS * ROW;
+  constexpr int S_TILES = WGF_BLOCK_N / 8;  // n8 score tiles of a K/V tile
+  constexpr int O_TILES = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + WGF_Q_SLOTS * Q_BYTES;
+  const uint32_t sv = sk + WGF_STAGES * KV_BYTES;
+  const uint32_t so = sv + WGF_STAGES * KV_BYTES;
+  const uint32_t bars = so + WGF_CONSUMERS * O_BYTES;
+  const auto q_full = [&](int i) { return bars + 8 * i; };
+  const auto q_empty = [&](int i) { return bars + 8 * (WGF_Q_SLOTS + i); };
+  const auto kv_full = [&](int i) { return bars + 8 * (2 * WGF_Q_SLOTS + i); };
+  const auto kv_empty = [&](int i) { return bars + 8 * (2 * WGF_Q_SLOTS + WGF_STAGES + i); };
+  const int q_blocks = (N + WGF_BLOCK_M - 1) / WGF_BLOCK_M;
+  const int n_tiles = (N + WGF_BLOCK_N - 1) / WGF_BLOCK_N;
+  const int work = q_blocks * BH;  // this block's work tiles: blockIdx.x, + gridDim.x, ...
+  const auto work_of = [&](int w, int& b, int& head, int& m0) {
+    const int bh = w / q_blocks;
+    b = bh / H, head = bh % H, m0 = (w % q_blocks) * WGF_BLOCK_M;
+  };
+
+  // A slot is free again when every consumer warp has arrived.
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < WGF_Q_SLOTS; ++i)
+      mbar_init(q_full(i), 1), mbar_init(q_empty(i), 4 * WGF_CONSUMERS);
+#pragma unroll
+    for (int i = 0; i < WGF_STAGES; ++i)
+      mbar_init(kv_full(i), 1), mbar_init(kv_empty(i), 4 * WGF_CONSUMERS);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WGF_CONSUMERS * WG_THREADS) {  // the producer warp
+    if (threadIdx.x == WGF_CONSUMERS * WG_THREADS) {
+      int it = 0;  // K/V tiles issued, over every work tile
+      int qi = 0;  // work tiles issued
+      for (int w = blockIdx.x; w < work; w += gridDim.x, ++qi) {
+        int b, head, m0;
+        work_of(w, b, head, m0);
+        const int qs = qi % WGF_Q_SLOTS;
+        if (qi >= WGF_Q_SLOTS) mbar_wait(q_empty(qs), (qi / WGF_Q_SLOTS - 1) & 1);
+        mbar_arrive_tx(q_full(qs), Q_BYTES);
+        tma_load(sq + qs * Q_BYTES, &q_map, q_full(qs), 0, head, m0, b);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int s = it % WGF_STAGES;
+          if (it >= WGF_STAGES) mbar_wait(kv_empty(s), (it / WGF_STAGES - 1) & 1);
+          mbar_arrive_tx(kv_full(s), 2 * KV_BYTES);
+          tma_load(sk + s * KV_BYTES, &k_map, kv_full(s), 0, head, j * WGF_BLOCK_N, b);
+          tma_load(sv + s * KV_BYTES, &v_map, kv_full(s), 0, head, j * WGF_BLOCK_N, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int c = threadIdx.x / WG_THREADS;  // this consumer's 64 rows of the work tile
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const uint32_t so_c = so + c * O_BYTES;
+  int it = 0, qi = 0;  // this consumer's K/V tiles and work tiles, as the producer counts them
+  for (int w = blockIdx.x; w < work; w += gridDim.x, ++qi) {
+    int b, head, m0;
+    work_of(w, b, head, m0);
+    const int bh = b * H + head;
+    const int qs = qi % WGF_Q_SLOTS;
+    const uint32_t q_rows = sq + qs * Q_BYTES + c * WG_ROWS * ROW;
+    float acc[D / 2];  // the unnormalised output, rows g and g+8 of the warp's 16
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[WGF_BLOCK_N / 2];  // the scores of one K/V tile
+
+    // S of K/V tile `tile` into `sc`, one commit group.
+    const auto issue_s = [&](int tile) {
+      const uint32_t sk_s = sk + (tile % WGF_STAGES) * KV_BYTES;
+      mbar_wait(kv_full(tile % WGF_STAGES), (tile / WGF_STAGES) & 1);
+      wgmma_fence();  // S's first k step ignores what `sc` held (scale-d 0)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, WGF_BLOCK_N, 0, 0>(sc, make_desc<ROW>(q_rows + 32 * kk, SBO),
+                                       make_desc<ROW>(sk_s + 32 * kk, SBO), kk > 0);
+      wgmma_commit();
+    };
+    // Key tile j of the work tile (the K/V tile `it`), its S issued into
+    // `sc`; the commit groups in flight at the top are P·V(j−1) and S(j).
+    // FIRST and LAST (compile-time, so that the wgmma waits are the same at
+    // every step a call site stands for) mark the work tile's first and last.
+    const auto step = [&](auto first, auto last, int j) {
+      constexpr bool FIRST = decltype(first)::value, LAST = decltype(last)::value;
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(acc);
+      if (lane == 0) {
+        if (!FIRST) mbar_arrive(kv_empty((it - 1) % WGF_STAGES));
+        if (LAST) mbar_arrive(q_empty(qs));  // Q's last read is done
+      }
+      const int key0 = j * WGF_BLOCK_N;
+      if (LAST && key0 + WGF_BLOCK_N > N) {  // the ragged last tile: mask keys >= N
+#pragma unroll
+        for (int jj = 0; jj < S_TILES; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key0 + jj * 8 + 2 * t + (e & 1) >= N) sc[4 * jj + e] = -INFINITY;
+      }
+      // The online softmax, rows g (r = 0) and g+8 (r = 1), each spread over
+      // the 4 lanes of a quad: the max in four independent chains, then the
+      // quad's shuffles. Every tile holds a key < N, so the new max is finite;
+      // exp2(−inf) rescales the empty first state to 0.
+      float mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float part[4] = {m_run[r], -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int jj = 0; jj < S_TILES; ++jj)
+          part[jj % 4] = fmaxf(part[jj % 4], fmaxf(sc[4 * jj + 2 * r], sc[4 * jj + 2 * r + 1]));
+        float mx = fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float corr = fast_exp2((m_run[r] - mx) * scale_log2);
+        m_run[r] = mx;
+        mc[r] = mx * scale_log2;
+        l_run[r] *= corr;
+#pragma unroll
+        for (int tt = 0; tt < O_TILES; ++tt) {
+          acc[4 * tt + 2 * r] *= corr;
+          acc[4 * tt + 2 * r + 1] *= corr;
+        }
+      }
+      // P = exp2(s·c − m·c), rounded to T: n8 tiles 2kk and 2kk+1 are the A
+      // fragment of k16 step kk of P·V. The row sums in two chains a row.
+      // P·V goes in WGF_PV_PARTS parts of the keys, each issued once its P
+      // is packed, so that the next part's exponentials run under it.
+      constexpr int PART = S_TILES / WGF_PV_PARTS;  // n8 score tiles a part
+      const uint32_t sv_s = sv + (it % WGF_STAGES) * KV_BYTES;
+      float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      fence_regs(acc);
+#pragma unroll
+      for (int part = 0; part < WGF_PV_PARTS; ++part) {
+        uint32_t pf[PART / 2][4];
+#pragma unroll
+        for (int i = 0; i < PART; ++i) {
+          const int jj = part * PART + i;
+          const float p0 = fast_exp2(fmaf(sc[4 * jj], scale_log2, -mc[0]));
+          const float p1 = fast_exp2(fmaf(sc[4 * jj + 1], scale_log2, -mc[0]));
+          const float p2 = fast_exp2(fmaf(sc[4 * jj + 2], scale_log2, -mc[1]));
+          const float p3 = fast_exp2(fmaf(sc[4 * jj + 3], scale_log2, -mc[1]));
+          ps[0][jj & 1] += p0 + p1;
+          ps[1][jj & 1] += p2 + p3;
+          pf[i / 2][(i & 1) * 2] = Mma<T>::pack(p0, p1);
+          pf[i / 2][(i & 1) * 2 + 1] = Mma<T>::pack(p2, p3);
+        }
+        fence_regs(pf);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < PART / 2; ++kk)
+          wgmma_rs<T, D, 1>(acc, pf[kk],
+                            make_desc<ROW>(sv_s + (part * PART / 2 + kk) * 16 * ROW, SBO), 1u);
+        wgmma_commit();
+      }
+      l_run[0] += ps[0][0] + ps[0][1];
+      l_run[1] += ps[1][0] + ps[1][1];
+      ++it;
+      if constexpr (!LAST) issue_s(it);
+    };
+
+    const std::true_type yes{};
+    const std::false_type no{};
+    mbar_wait(q_full(qs), (qi / WGF_Q_SLOTS) & 1);
+    issue_s(it);
+    if (n_tiles == 1) {
+      step(yes, yes, 0);
+    } else {
+      step(yes, no, 0);
+      for (int j = 1; j + 1 < n_tiles; ++j) step(no, no, j);
+      step(no, yes, n_tiles - 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(kv_empty((it - 1) % WGF_STAGES));
+
+    // Epilogue: divide by l, round to T, stage the rows in this consumer's
+    // swizzled tile (once the previous work tile's store has read it), and
+    // store them by TMA, which writes rows < N only.
+    float inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv_l[r] = 1.f / l;
+      if constexpr (LSE) {
+        const int row = m0 + c * WG_ROWS + warp * 16 + g + 8 * r;
+        if (t == 0 && row < N)
+          lse[static_cast<int64_t>(bh) * N + row] = m_run[r] * scale_log2 + log2f(l);
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + c, WG_THREADS);
+    const int r0 = warp * 16 + g;
+#pragma unroll
+    for (int tt = 0; tt < O_TILES; ++tt) {
+      st_shared_u32(so_c + swz<ROW>(r0 * ROW + tt * 16 + t * 4),
+                    Mma<T>::pack(acc[4 * tt] * inv_l[0], acc[4 * tt + 1] * inv_l[0]));
+      st_shared_u32(so_c + swz<ROW>((r0 + 8) * ROW + tt * 16 + t * 4),
+                    Mma<T>::pack(acc[4 * tt + 2] * inv_l[1], acc[4 * tt + 3] * inv_l[1]));
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + c, WG_THREADS);
+    if (tid == 0) {
+      tma_store(&o_map, so_c, 0, head, m0 + c * WG_ROWS, b);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+// The backward on wgmma (bf16, fp16): one block a (key tile of WGB_BLOCK_N,
+// batch·head), two consumer warpgroups, each owning 64 keys on the M side of
+// its products, as in the mma.sync kernel:
+//   Sᵀ  = K·Qᵀ    A: its K rows            B: the Q tile      (smem, K-major)
+//   dPᵀ = V·dOᵀ   A: its V rows            B: the dO tile     (smem, K-major)
+//   dV += Pᵀ·dO   A: Pᵀ (Sᵀ's accumulator, in registers)  B: dO (transposed)
+//   dK += dSᵀ·Q   A: dSᵀ (registers)                       B: Q (transposed)
+//   dQ  = dS·K    A: dSᵀ from its shared tile (transposed)  B: its K rows (transposed)
+// K and V arrive once by TMA; the first thread streams the Q and dO tiles of
+// WGB_BLOCK_M queries, with their lse and D, through the ring by TMA, two
+// tiles ahead. lse and D are read as one flat array each, so the ragged last
+// tile of a (batch, head) reads the next one's values: those columns (and
+// the zero-filled Q and dO rows) get P = 0. A consumer issues, after a
+// tile's P and dS, its dQ, its dV and dK and the next tile's Sᵀ and dPᵀ,
+// and stages dQ once they are done, before the next tile's P and dS.
+// (Issuing the next Sᵀ and dPᵀ before this tile's P and dS, into a second
+// pair of accumulators, made ptxas serialize the wgmma for want of registers
+// and was slower; so was staging dQ under the other products; PERF.md.)
+// dSᵀ alternates between two
+// shared tiles. A consumer's fp32 dQ partial over its 64 keys goes through
+// one of its two swizzled staging tiles to one TMA reduce-add a box into the
+// scratch the pre-pass zeroed, issued by its first thread after the next
+// step's dSᵀ barrier, which also tells it that every thread has staged its
+// share. dK and dV go out once, by TMA stores.
+constexpr int WGB_THREADS = 2 * WG_THREADS;  // two consumers; thread 0 loads
+constexpr int WGB_BLOCK_N = 2 * WG_ROWS;  // keys a block: 64 a consumer
+constexpr int WGB_BLOCK_M = WG_ROWS;      // queries a step
+constexpr int WGB_STAGES = 4;             // Q/dO tiles in the ring
+// The ring holds the tile being freed, this one, the next (its Sᵀ, dPᵀ in
+// flight) and the one being loaded.
+static_assert(WGB_STAGES >= 4, "the loads would wait on the tile being read");
+// fp32 columns of one dQ reduce box: its rows are at most 128 bytes (the
+// widest swizzle), so d 64 takes two boxes.
+__host__ __device__ constexpr int wgb_dq_box(int D) { return D < 32 ? D : 32; }
+
+constexpr int wgb_smem_bytes(int D) {
+  return 1024 +                                   // to align the tiles to 1024 bytes
+         2 * WGB_BLOCK_N * 2 * D +                // K, V
+         WGB_STAGES * 2 * WGB_BLOCK_M * 2 * D +   // the Q and dO ring
+         2 * 2 * WG_ROWS * WGB_BLOCK_M * 2 +      // dSᵀ, two tiles a consumer
+         2 * 2 * WGB_BLOCK_M * D * 4 +            // dQ staging, two a consumer
+         WGB_STAGES * 2 * WGB_BLOCK_M * 4 +       // the lse and D ring
+         8 * (1 + 2 * WGB_STAGES);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WGB_THREADS, 1)
+attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const __grid_constant__ CUtensorMap dk_map,
+                           const __grid_constant__ CUtensorMap dv_map,
+                           const __grid_constant__ CUtensorMap dq_map,
+                           const __grid_constant__ CUtensorMap lse_map,
+                           const __grid_constant__ CUtensorMap delta_map,
+                           int N, int H, float scale_log2, float scale) {
+  constexpr int ROW = 2 * D;                // bytes of a row of d values: the swizzle span
+  constexpr uint32_t SBO = 8 * ROW;
+  constexpr int KV_BYTES = WGB_BLOCK_N * ROW;
+  constexpr int QT_BYTES = WGB_BLOCK_M * ROW;
+  constexpr int DS_ROW = 2 * WGB_BLOCK_M;   // 128 bytes: one key's dS over the step's queries
+  constexpr int DS_BYTES = WG_ROWS * DS_ROW;
+  constexpr int QB = wgb_dq_box(D);         // fp32 columns of a dQ reduce box
+  constexpr int QB_ROW = 4 * QB;            // its row bytes: its swizzle span
+  constexpr int DQ_BYTES = WGB_BLOCK_M * D * 4;
+  constexpr int STAT_BYTES = 2 * WGB_BLOCK_M * 4;  // a stage's lse, then its D
+  constexpr int Q_STEPS = WGB_BLOCK_M / 16;        // k16 steps over queries (dV, dK)
+  constexpr int O_TILES = D / 8;
+  constexpr int ACC = WGB_BLOCK_M / 2;             // Sᵀ or dPᵀ registers a thread
+  static_assert(DS_ROW == 128, "dSᵀ rows are one 128-byte swizzle atom");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023) & ~1023u;
+  const uint32_t sv = sk + KV_BYTES;
+  const uint32_t sq = sv + KV_BYTES;
+  const uint32_t sdo = sq + WGB_STAGES * QT_BYTES;
+  const uint32_t sds = sdo + WGB_STAGES * QT_BYTES;
+  const uint32_t sdq = sds + 4 * DS_BYTES;
+  const uint32_t stats = sdq + 4 * DQ_BYTES;
+  const uint32_t bars = stats + WGB_STAGES * STAT_BYTES;
+  const uint32_t kv_full = bars;
+  const auto full = [&](int i) { return bars + 8 * (1 + i); };
+  const auto empty = [&](int i) { return bars + 8 * (1 + WGB_STAGES + i); };
+  const int bh = blockIdx.y, b = bh / H, head = bh % H;
+  const int n0 = blockIdx.x * WGB_BLOCK_N;
+  const int m_tiles = (N + WGB_BLOCK_M - 1) / WGB_BLOCK_M;
+
+  const int c = threadIdx.x / WG_THREADS;  // this consumer's 64 keys of the block
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const bool loader = threadIdx.x == 0;
+
+  // A stage is full when its Q, dO, lse and D tiles have landed; free when
+  // the 8 consumer warps have arrived.
+  if (loader) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int i = 0; i < WGB_STAGES; ++i) mbar_init(full(i), 1), mbar_init(empty(i), 8);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The loads, by the loader thread: query tile j to stage j mod WGB_STAGES
+  // once tile j − WGB_STAGES has freed it.
+  const auto load_q = [&](int j) {
+    const int s = j % WGB_STAGES;
+    if (j >= WGB_STAGES) mbar_wait(empty(s), (j / WGB_STAGES - 1) & 1);
+    mbar_arrive_tx(full(s), 2 * QT_BYTES + STAT_BYTES);
+    tma_load(sq + s * QT_BYTES, &q_map, full(s), 0, head, j * WGB_BLOCK_M, b);
+    tma_load(sdo + s * QT_BYTES, &do_map, full(s), 0, head, j * WGB_BLOCK_M, b);
+    const int flat = bh * N + j * WGB_BLOCK_M;
+    tma_load_1d(stats + s * STAT_BYTES, &lse_map, full(s), flat);
+    tma_load_1d(stats + s * STAT_BYTES + WGB_BLOCK_M * 4, &delta_map, full(s), flat);
+  };
+  if (loader) {
+    mbar_arrive_tx(kv_full, 2 * KV_BYTES);
+    tma_load(sk, &k_map, kv_full, 0, head, n0, b);
+    tma_load(sv, &v_map, kv_full, 0, head, n0, b);
+    for (int j = 0; j < 2 && j < m_tiles; ++j) load_q(j);
+  }
+
+  const uint32_t k_rows = sk + c * WG_ROWS * ROW;
+  const uint32_t v_rows = sv + c * WG_ROWS * ROW;
+  // Keys at or past N (zero-filled) get P = 0: their dS is 0 too, so no
+  // padded key reaches dQ, whatever the inputs.
+  const int key_lo = n0 + c * WG_ROWS + warp * 16 + g;
+  const bool key_lo_ok = key_lo < N, key_hi_ok = key_lo + 8 < N;
+  const int r0 = warp * 16 + g;
+  float dv[D / 2], dk[D / 2], dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+
+  // Sᵀ and dPᵀ of query tile j into (st, dp), one commit group.
+  const auto issue_sdp = [&](int j, float (&st)[ACC], float (&dp)[ACC]) {
+    const int s = j % WGB_STAGES;
+    mbar_wait(full(s), (j / WGB_STAGES) & 1);
+    wgmma_fence();  // the first k step ignores what (st, dp) held (scale-d 0)
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<T, WGB_BLOCK_M, 0, 0>(st, make_desc<ROW>(k_rows + 32 * kk, SBO),
+                                     make_desc<ROW>(sq + s * QT_BYTES + 32 * kk, SBO), kk > 0);
+      wgmma_ss<T, WGB_BLOCK_M, 0, 0>(dp, make_desc<ROW>(v_rows + 32 * kk, SBO),
+                                     make_desc<ROW>(sdo + s * QT_BYTES + 32 * kk, SBO), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ of query tile j (in `dq`, its products complete) into this
+  // consumer's staging tile j mod 2, whose last reduce-add (tile j − 2) has
+  // read it (thread 0 waited for that before step j's barrier, which this
+  // thread has passed); then fenced for the reduce-add's asynchronous read.
+  const auto stage_dq = [&](int j) {
+    const uint32_t tile = sdq + (2 * c + (j & 1)) * DQ_BYTES;
+#pragma unroll
+    for (int tt = 0; tt < O_TILES; ++tt) {
+      const int col = tt * 8 + 2 * t;
+      const uint32_t box = tile + (col / QB) * WGB_BLOCK_M * QB_ROW;
+      const int cw = col % QB;
+      st_shared_f2(box + swz<QB_ROW>(r0 * QB_ROW + cw * 4), dq[4 * tt], dq[4 * tt + 1]);
+      st_shared_f2(box + swz<QB_ROW>((r0 + 8) * QB_ROW + cw * 4), dq[4 * tt + 2], dq[4 * tt + 3]);
+    }
+    fence_proxy_async();
+  };
+  // By thread 0, after a barrier that every thread passed after staging
+  // tile j: its reduce-adds, which drop rows past N, as one bulk group.
+  const auto reduce_dq = [&](int j) {
+    const uint32_t tile = sdq + (2 * c + (j & 1)) * DQ_BYTES;
+#pragma unroll
+    for (int cc = 0; cc < D / QB; ++cc)
+      tma_reduce_add(&dq_map, tile + cc * WGB_BLOCK_M * QB_ROW, cc * QB, head,
+                     j * WGB_BLOCK_M, b);
+    bulk_commit();
+  };
+  // Query tile j, its Sᵀ and dPᵀ issued into (st, dp); FIRST and LAST
+  // (compile-time, so that every wgmma wait has a fixed count where it
+  // stands) mark the first and last tile. The commit groups in flight at the
+  // top are dQ(j−1), dV/dK(j−1) and Sᵀ/dPᵀ(j); dQ(j−1) is staged right
+  // after them, before this tile's P and dS.
+  float st[ACC], dp[ACC];
+  const auto step = [&](auto first, auto last, int j) {
+    constexpr bool FIRST = decltype(first)::value, LAST = decltype(last)::value;
+    const int s = j % WGB_STAGES;
+    if (loader && j + 2 < m_tiles) load_q(j + 2);  // two tiles ahead
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dp);
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+    if constexpr (!FIRST) {
+      if (lane == 0) mbar_arrive(empty((j - 1) % WGB_STAGES));
+      stage_dq(j - 1);
+    }
+
+    // Pᵀ = exp2(s·c − lse) and dSᵀ = Pᵀ∘(dPᵀ − D)/√d, rows g and g+8 (keys)
+    // and columns 2t, 2t+1 (queries) of each n8 tile. dP is rounded to T
+    // first, as the JAX vjp rounds it; P (for dV) and dS (for dK and dQ) are
+    // rounded to T as they are packed into A fragments; dSᵀ also goes to
+    // this consumer's shared tile j mod 2 for dQ.
+    const uint32_t lse_s = stats + s * STAT_BYTES, delta_s = lse_s + WGB_BLOCK_M * 4;
+    const uint32_t ds_t = sds + (2 * c + (j & 1)) * DS_BYTES;
+    uint32_t pf[Q_STEPS][4], dsf[Q_STEPS][4];
+    const int q_left = LAST ? N - j * WGB_BLOCK_M : WGB_BLOCK_M;  // queries below N
+#pragma unroll
+    for (int jj = 0; jj < WGB_BLOCK_M / 8; ++jj) {
+      const int col = jj * 8 + 2 * t;
+      const float2 l2 = ld_shared_f2(lse_s + 4 * col);
+      const float2 d2 = ld_shared_f2(delta_s + 4 * col);
+      const bool q0 = col < q_left, q1 = col + 1 < q_left;
+      float p[4], ds[4];
+      p[0] = key_lo_ok && q0 ? fast_exp2(fmaf(st[4 * jj], scale_log2, -l2.x)) : 0.f;
+      p[1] = key_lo_ok && q1 ? fast_exp2(fmaf(st[4 * jj + 1], scale_log2, -l2.y)) : 0.f;
+      p[2] = key_hi_ok && q0 ? fast_exp2(fmaf(st[4 * jj + 2], scale_log2, -l2.x)) : 0.f;
+      p[3] = key_hi_ok && q1 ? fast_exp2(fmaf(st[4 * jj + 3], scale_log2, -l2.y)) : 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = p[e] * (Mma<T>::round(dp[4 * jj + e]) - ((e & 1) ? d2.y : d2.x)) * scale;
+      pf[jj / 2][(jj & 1) * 2] = Mma<T>::pack(p[0], p[1]);
+      pf[jj / 2][(jj & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
+      const uint32_t lo = Mma<T>::pack(ds[0], ds[1]), hi = Mma<T>::pack(ds[2], ds[3]);
+      dsf[jj / 2][(jj & 1) * 2] = lo;
+      dsf[jj / 2][(jj & 1) * 2 + 1] = hi;
+      st_shared_u32(ds_t + swz<128>(r0 * DS_ROW + col * 2), lo);
+      st_shared_u32(ds_t + swz<128>((r0 + 8) * DS_ROW + col * 2), hi);
+    }
+    fence_proxy_async();
+    // Before the barrier: dQ(j−2)'s reduce-add has read staging tile j mod
+    // 2, which dQ(j) is staged in after it.
+    if (tid == 0) bulk_wait_read<0>();
+    named_bar_sync(1 + c, WG_THREADS);  // dSᵀ(j) and dQ(j−1)'s staging are written
+    if (!FIRST && tid == 0) reduce_dq(j - 1);
+
+    const uint32_t sq_s = sq + s * QT_BYTES, sdo_s = sdo + s * QT_BYTES;
+    fence_regs(pf);
+    fence_regs(dsf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_ROWS / 16; ++kk)
+      wgmma_ss<T, D, 1, 1>(dq, make_desc<128>(ds_t + kk * 16 * DS_ROW, 8 * DS_ROW),
+                           make_desc<ROW>(k_rows + kk * 16 * ROW, SBO), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < Q_STEPS; ++kk) {
+      wgmma_rs<T, D, 1>(dv, pf[kk], make_desc<ROW>(sdo_s + kk * 16 * ROW, SBO), 1u);
+      wgmma_rs<T, D, 1>(dk, dsf[kk], make_desc<ROW>(sq_s + kk * 16 * ROW, SBO), 1u);
+    }
+    wgmma_commit();
+    if constexpr (!LAST) issue_sdp(j + 1, st, dp);
+  };
+
+  const std::true_type yes{};
+  const std::false_type no{};
+  mbar_wait(kv_full, 0);
+  issue_sdp(0, st, dp);
+  if (m_tiles == 1) {
+    step(yes, yes, 0);
+  } else {
+    step(yes, no, 0);
+    for (int j = 1; j + 1 < m_tiles; ++j) step(no, no, j);
+    step(no, yes, m_tiles - 1);
+  }
+  wgmma_wait<0>();
+  fence_regs(dv);
+  fence_regs(dk);
+  fence_regs(dq);
+  stage_dq(m_tiles - 1);  // its staging tile's last reduce-add was waited for in the last step
+  named_bar_sync(1 + c, WG_THREADS);
+  if (tid == 0) reduce_dq(m_tiles - 1);
+
+  // Epilogue: dV and dK rounded to T, staged in this consumer's own V and K
+  // rows (only it reads them), stored by TMA, which writes keys < N only.
+#pragma unroll
+  for (int tt = 0; tt < O_TILES; ++tt) {
+    st_shared_u32(v_rows + swz<ROW>(r0 * ROW + tt * 16 + t * 4), Mma<T>::pack(dv[4 * tt], dv[4 * tt + 1]));
+    st_shared_u32(v_rows + swz<ROW>((r0 + 8) * ROW + tt * 16 + t * 4),
+                  Mma<T>::pack(dv[4 * tt + 2], dv[4 * tt + 3]));
+    st_shared_u32(k_rows + swz<ROW>(r0 * ROW + tt * 16 + t * 4), Mma<T>::pack(dk[4 * tt], dk[4 * tt + 1]));
+    st_shared_u32(k_rows + swz<ROW>((r0 + 8) * ROW + tt * 16 + t * 4),
+                  Mma<T>::pack(dk[4 * tt + 2], dk[4 * tt + 3]));
+  }
+  fence_proxy_async();
+  named_bar_sync(1 + c, WG_THREADS);
+  if (tid == 0) {
+    tma_store(&dv_map, v_rows, 0, head, n0 + c * WG_ROWS, b);
+    tma_store(&dk_map, k_rows, 0, head, n0 + c * WG_ROWS, b);
+    bulk_commit();
+    bulk_wait<0>();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1205,6 +2085,125 @@ void launch_tf32(const void* q, const void* k, const void* v, void* o, int B,
       scale_log2);
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime's entry-point
+// query (so the library links no -lcuda); looked up once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled& fn) {
+  static std::atomic<EncodeTiled> cached{nullptr};
+  fn = cached.load(std::memory_order_acquire);
+  if (fn != nullptr) return cudaSuccess;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess) return err;
+  if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+  fn = reinterpret_cast<EncodeTiled>(p);
+  cached.store(fn, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// The TMA map of a (B, N, h, d) tensor at `base` (element strides `s`, the d
+// stride 1) as dims (d, h, N, B): a box of `box_d` values by `rows` rows of
+// one (batch, head), swizzled by its row bytes (32, 64 or 128), which is how
+// the kernels' shared tiles are laid out. Rows past N read as zeros and are
+// not written.
+cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                     const void* base, int B, int N, int H, int D, Strides s, int box_d,
+                     int rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(encode);
+  if (err != cudaSuccess) return err;
+  // An axis of length 1 may carry any stride: give it one TMA takes.
+  const uint64_t eb = static_cast<uint64_t>(elem_bytes);
+  const cuuint64_t sh = H > 1 ? s.h * eb : static_cast<uint64_t>(D) * eb;
+  const cuuint64_t sn = N > 1 ? s.n * eb : sh * H;
+  const cuuint64_t sb = B > 1 ? s.b * eb : sn * N;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {sh, sn, sb};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const int row_bytes = box_d * elem_bytes;
+  const CUtensorMapSwizzle swizzle = row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The TMA map of `n` contiguous fp32 values at `base`, in boxes of `box`;
+// values past n read as zeros.
+cudaError_t make_flat_map(CUtensorMap* map, const float* base, int64_t n, int box) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // none for one dimension
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t elem_strides[1] = {1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base),
+                            dims, strides, boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// The contiguous (B, N, h, d) outputs' strides.
+Strides contiguous(int N, int H, int D) {
+  return Strides{static_cast<int64_t>(N) * H * D, static_cast<int64_t>(H) * D, D};
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int N, int H, Strides qs, Strides ks, Strides vs,
+                             float scale_log2, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err;
+  if ((err = make_map(&maps[0], map_type<T>(), 2, q, B, N, H, D, qs, D, WGF_BLOCK_M)) ||
+      (err = make_map(&maps[1], map_type<T>(), 2, k, B, N, H, D, ks, D, WGF_BLOCK_N)) ||
+      (err = make_map(&maps[2], map_type<T>(), 2, v, B, N, H, D, vs, D, WGF_BLOCK_N)) ||
+      (err = make_map(&maps[3], map_type<T>(), 2, o, B, N, H, D, contiguous(N, H, D), D,
+                      WG_ROWS)))
+    return err;
+  const auto kernel = lse ? attention_fwd_wgmma_kernel<T, D, true>
+                          : attention_fwd_wgmma_kernel<T, D, false>;
+  constexpr int smem = wgf_smem_bytes(D);
+  if ((err = allow_smem(kernel, smem))) return err;
+  int sms = 0;
+  if ((err = sm_count(sms))) return err;
+  // Persistent: one block an SM (or a work tile), walking work tiles.
+  const int64_t work = static_cast<int64_t>(B) * H * ((N + WGF_BLOCK_M - 1) / WGF_BLOCK_M);
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  kernel<<<grid, WGF_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], lse, N,
+                                                   H, B * H, scale_log2);
+  return cudaGetLastError();
+}
+
 // Launches the forward of type T; `lse` (16-bit types only) non-null takes
 // the instance that also writes the log-sum-exp.
 template <typename T, int D>
@@ -1227,20 +2226,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     else
       launch_tf32<D, 1>(q, k, v, o, B, N, H, qs, ks, vs, scale_log2, stream);
   } else {
-    constexpr int smem = mma_smem_bytes(D);
-    auto kernel = lse ? attention_fwd_mma_kernel<T, D, true>
-                      : attention_fwd_mma_kernel<T, D, false>;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if constexpr (wgf_built(D))
+      if (!mma_fwd(N, D))
+        return launch_fwd_wgmma<T, D>(q, k, v, o, lse, B, N, H, qs, ks, vs, scale_log2, stream);
+    if constexpr (mma_fwd_built(D)) {
+      constexpr int smem = mma_smem_bytes(D);
+      auto kernel = lse ? attention_fwd_mma_kernel<T, D, true>
+                        : attention_fwd_mma_kernel<T, D, false>;
+      const cudaError_t err = allow_smem(kernel, smem);
       if (err != cudaSuccess) return err;
+      const dim3 grid((N + MMA_BLOCK_M - 1) / MMA_BLOCK_M, B * H);
+      kernel<<<grid, MMA_THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), lse, N, H, qs, ks, vs,
+          scale_log2);
     }
-    const dim3 grid((N + MMA_BLOCK_M - 1) / MMA_BLOCK_M, B * H);
-    kernel<<<grid, MMA_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, N, H, qs, ks, vs,
-        scale_log2);
   }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, float* dq_acc, void* dk,
+                             void* dv, int B, int N, int H, Strides qs, Strides ks, Strides vs,
+                             Strides dos, float scale_log2, float scale, cudaStream_t stream) {
+  CUtensorMap maps[9];
+  const Strides out = contiguous(N, H, D);
+  const int64_t rows = static_cast<int64_t>(B) * H * N;
+  cudaError_t err;
+  if ((err = make_map(&maps[0], map_type<T>(), 2, q, B, N, H, D, qs, D, WGB_BLOCK_M)) ||
+      (err = make_map(&maps[1], map_type<T>(), 2, k, B, N, H, D, ks, D, WGB_BLOCK_N)) ||
+      (err = make_map(&maps[2], map_type<T>(), 2, v, B, N, H, D, vs, D, WGB_BLOCK_N)) ||
+      (err = make_map(&maps[3], map_type<T>(), 2, dout, B, N, H, D, dos, D, WGB_BLOCK_M)) ||
+      (err = make_map(&maps[4], map_type<T>(), 2, dk, B, N, H, D, out, D, WG_ROWS)) ||
+      (err = make_map(&maps[5], map_type<T>(), 2, dv, B, N, H, D, out, D, WG_ROWS)) ||
+      (err = make_map(&maps[6], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq_acc, B, N, H, D, out,
+                      wgb_dq_box(D), WGB_BLOCK_M)) ||
+      (err = make_flat_map(&maps[7], lse, rows, WGB_BLOCK_M)) ||
+      (err = make_flat_map(&maps[8], delta, rows, WGB_BLOCK_M)))
+    return err;
+  constexpr int smem = wgb_smem_bytes(D);
+  if ((err = allow_smem(attention_bwd_wgmma_kernel<T, D>, smem))) return err;
+  const dim3 grid((N + WGB_BLOCK_N - 1) / WGB_BLOCK_N, B * H);
+  attention_bwd_wgmma_kernel<T, D><<<grid, WGB_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], maps[8], N, H,
+      scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -1261,20 +2291,24 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr int smem = bwd_smem_bytes(D);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attention_bwd_mma_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  constexpr bool FP16 = std::is_same_v<T, __half>;
+  if (!mma_bwd(N, D, FP16)) {
+    if constexpr (wgb_built(D, FP16))
+      err = launch_bwd_wgmma<T, D>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, N, H, qs, ks, vs,
+                                   dos, 1.4426950408889634f * scale, scale, stream);
+    if (err != cudaSuccess) return err;
+  } else {
+    constexpr int smem = bwd_smem_bytes(D);
+    if ((err = allow_smem(attention_bwd_mma_kernel<T, D>, smem))) return err;
+    const dim3 grid((N + BWD_BLOCK_N - 1) / BWD_BLOCK_N, B * H);
+    attention_bwd_mma_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+        static_cast<T*>(dv), N, H, qs, ks, vs, dos, 1.4426950408889634f * scale, scale);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-  const dim3 grid((N + BWD_BLOCK_N - 1) / BWD_BLOCK_N, B * H);
-  attention_bwd_mma_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
-      static_cast<T*>(dv), N, H, qs, ks, vs, dos, 1.4426950408889634f * scale, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
 
   const int64_t chunks = rows * (D / 8);
   attention_bwd_dq_kernel<T>
@@ -1404,4 +2438,14 @@ extern "C" int hd_attention_bwd(const void* q, const void* k, const void* v,
                                          dv, B, N, H, qs, ks, vs, os, dos, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The name of the kernel that hd_attention_fwd (backward 0) or
+// hd_attention_bwd (backward 1) launches for this dtype (as there), N and d,
+// as mma_fwd and mma_bwd choose.
+extern "C" const char* hd_attention_route(int backward, int dtype, int N, int D) {
+  if (dtype == 0) return backward ? "" : "attention_fwd_tf32_kernel";
+  if (backward)
+    return mma_bwd(N, D, dtype == 1) ? "attention_bwd_mma_kernel" : "attention_bwd_wgmma_kernel";
+  return mma_fwd(N, D) ? "attention_fwd_mma_kernel" : "attention_fwd_wgmma_kernel";
 }

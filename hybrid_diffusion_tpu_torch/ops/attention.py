@@ -9,10 +9,11 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     `attention_reference`; a CUDA tensor goes to a hand-written CUDA kernel
     in `csrc/attention.cu` (which replaces the TPU's `_pallas_attention`) or
     the call raises. Both kernels run on the tensor cores: bf16 and fp16
-    take `attention_fwd` (16-bit products), fp32 takes `attention_fwd_fp32`
-    (each product as three TF32 products, fp32-accurate). There is no
-    fallback from the card to the plain version or from one kernel to the
-    other.
+    take `attention_fwd` (16-bit products: Hopper's wgmma fed by TMA at d 32
+    from N 257 and at d 64, mma.sync elsewhere, as the C dispatch chooses;
+    `kernel_route` names the kernel), fp32 takes `attention_fwd_fp32` (each product as
+    three TF32 products, fp32-accurate). There is no fallback from the card
+    to the plain version or from one kernel to the other.
   - `attention_fwd`, the custom op `hdt::attention_fwd` (torch.library):
     its CUDA implementation launches the kernel, its CPU implementation is
     the plain version, and its fake implementation gives the output's
@@ -23,11 +24,13 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     that require grad, the counterpart of the JAX package's
     `_pallas_attention_diff`. Its forward is the kernel that also writes
     each query row's log-sum-exp (`attention_forward_lse`), its backward a
-    hand-written FlashAttention-2-style kernel (`attention_backward`,
-    `attention_bwd` in `csrc/attention.cu`), which computes what the JAX
-    backward `_pallas_attention_bwd` (the vjp of `_xla_attention`) does.
-    Their plain twins, `attention_forward_lse_reference` and
-    `attention_backward_reference`, take CPU tensors.
+    hand-written kernel (`attention_backward`, `attention_bwd` in
+    `csrc/attention.cu`; wgmma and TMA at d 32 from N 257, mma.sync
+    elsewhere),
+    which computes what the JAX backward `_pallas_attention_bwd` (the vjp
+    of `_xla_attention`) does. Their plain twins,
+    `attention_forward_lse_reference` and `attention_backward_reference`,
+    take CPU tensors.
   - `RecomputedBackwardAttention`: reverse mode of fp32 CUDA tensors: the
     forward is the fp32 kernel, the backward differentiates
     `attention_reference` at the saved q, k, v (there is no fp32 backward
@@ -138,6 +141,28 @@ BWD_RTOL = {("bfloat16", "randn"): 3e-2, ("float16", "randn"): 1.75e-3,
             ("float16", "mask trap"): 0.125}
 
 
+# One H100 SXM's peaks (NVIDIA's data sheet, dense): FLOP/s of the products
+# by input type (fp32 on the TF32 tensor cores), bytes/s of device memory,
+# and exponentials/s of the special-function units ("989 TFLOPS of FP16
+# matmul but only 3.9 TFLOPS of special functions", Shah et al. 2024,
+# FlashAttention-3, section 3.3).
+H100_PEAKS = {"flops": {"bfloat16": 989e12, "float16": 989e12,
+                        "float32": 495e12},
+              "bytes": 3.35e12, "exponentials": 3.9e12}
+
+
+def bound_ms(flops: float, nbytes: float, exps: float,
+             dname: str) -> tuple[float, str]:
+    """(ms, what binds it): the least time an H100 could take for work of
+    `flops` products of type `dname`, `nbytes` moved and `exps`
+    exponentials, the largest of the three times at H100_PEAKS."""
+    times = {"operations": flops / H100_PEAKS["flops"][dname],
+             "bytes": nbytes / H100_PEAKS["bytes"],
+             "exponentials": exps / H100_PEAKS["exponentials"]}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
 def grad_rel_err(ours, ref, common_scale: bool = False) -> float:
     """The largest, over the gradients (dq, dk, dv), of max|ours − ref| /
     max|ref|: each gradient against its own scale, or with `common_scale`
@@ -152,7 +177,8 @@ def grad_rel_err(ours, ref, common_scale: bool = False) -> float:
 
 def bind(lib: ctypes.CDLL):
     """The library's `hd_attention_fwd`, with its C signature set, and the
-    signatures of `hd_attention_fwd_lse` and `hd_attention_bwd`."""
+    signatures of `hd_attention_fwd_lse`, `hd_attention_bwd` and
+    `hd_attention_route`."""
     fn = lib.hd_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_int64] * 9 + [ctypes.c_void_p])
@@ -165,6 +191,8 @@ def bind(lib: ctypes.CDLL):
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 15
         + [ctypes.c_void_p])
     lib.hd_attention_bwd.restype = ctypes.c_int
+    lib.hd_attention_route.argtypes = [ctypes.c_int] * 4
+    lib.hd_attention_route.restype = ctypes.c_char_p
     return fn
 
 
@@ -178,12 +206,14 @@ def load_kernel() -> cuda_build.BuiltLibrary:
     return _library
 
 
-# The tensor-core kernels, mangled: attention_fwd_mma_kernel<T, D, LSE>
-# (bf16, fp16), attention_bwd_mma_kernel<T, D> (bf16, fp16) and
-# attention_fwd_tf32_kernel<D, M16 tiles a warp> (fp32). The backward's
+# The tensor-core kernels, mangled: attention_fwd_wgmma_kernel<T, D, LSE>
+# and attention_bwd_wgmma_kernel<T, D> (bf16, fp16 on wgmma), their mma.sync
+# counterparts attention_fwd_mma_kernel<T, D, LSE> and
+# attention_bwd_mma_kernel<T, D>, and attention_fwd_tf32_kernel<D, M16 tiles
+# a warp> (fp32). The backward's
 # pre-pass and dQ conversion run no product and are not matched.
-_SYMBOL = re.compile(r"(attention_(?:fwd|bwd)_mma_kernel)I(13__nv_bfloat16|6__half)"
-                     r"Li(\d+)E(?:Lb([01])E)?"
+_SYMBOL = re.compile(r"(attention_(?:fwd|bwd)_(?:mma|wgmma)_kernel)"
+                     r"I(13__nv_bfloat16|6__half)Li(\d+)E(?:Lb([01])E)?"
                      r"|(attention_fwd_tf32_kernel)ILi(\d+)ELi(\d+)E")
 _MANGLED_DTYPES = {"13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
 
@@ -200,6 +230,17 @@ def kernel_instance(symbol: str) -> tuple[str, torch.dtype, int] | None:
         name = m.group(1) + ("/lse" if m.group(4) == "1" else "")
         return name, _MANGLED_DTYPES[m.group(2)], int(m.group(3))
     return f"{m.group(5)}/m{m.group(7)}", torch.float32, int(m.group(6))
+
+
+def kernel_route(dtype: torch.dtype, n: int, head_dim: int,
+                 backward: bool = False) -> str:
+    """The kernel that the library launches for a forward (or backward) of
+    this dtype, sequence length and head_dim, as its C dispatch chooses
+    (`hd_attention_route`): a wgmma kernel or an mma.sync one. Builds the
+    library at first use (on the card's machine)."""
+    lib = load_kernel().lib
+    return lib.hd_attention_route(int(backward), _DTYPE_CODES[dtype], n,
+                                  head_dim).decode()
 
 
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor,

@@ -6,8 +6,8 @@ first time a CUDA tensor needs it, and loaded with `ctypes`. The library's
 file name carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time.
 `kernel_resources` reads each kernel's registers and spills from ptxas's
-report, `sass_opcode_counts` counts an instruction in each kernel's machine
-code (`cuobjdump -sass`), and `nvidia_smi_line` reads the card's name and
+report, `sass_opcode_table` counts instructions by opcode in each kernel's
+machine code (`cuobjdump -sass`), and `nvidia_smi_line` reads the card's name and
 power limit, which every measurement script prints beside its numbers.
 """
 
@@ -94,6 +94,18 @@ def build(source_name: str | Path) -> BuiltLibrary:
     return BuiltLibrary(ctypes.CDLL(str(so_path)), so_path, False, seconds, log)
 
 
+def wgmma_serialization_notes(ptxas_log: str) -> dict[str, list[str]]:
+    """Per kernel symbol, the codes of ptxas's notes that it serialized the
+    kernel's wgmma (C7510-C7520: "wgmma.mma_async instructions are
+    serialized ...", "warpgroup.wait is injected ..."): each one costs the
+    overlap of a warpgroup's products with its other work."""
+    notes: dict[str, list[str]] = collections.defaultdict(list)
+    for line in ptxas_log.splitlines():
+        if m := re.search(r"\((C75\d\d)\).*'([^']+)'", line):
+            notes[m.group(2)].append(m.group(1))
+    return dict(notes)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelResources:
     registers: int
@@ -133,22 +145,25 @@ def find_cuobjdump() -> str:
                        "triton/backends/nvidia/bin/")
 
 
-def sass_opcode_counts(so_path: Path, opcode: str) -> dict[str, int]:
-    """Per kernel symbol in the library, the count of SASS instructions
-    whose opcode starts with `opcode` (e.g. "HMMA")."""
+def sass_opcode_table(so_path: Path, opcodes) -> dict[str, dict[str, int]]:
+    """Per kernel symbol in the library, the count of SASS instructions of
+    each opcode in `opcodes` (e.g. "HGMMA", "UTMALDG"): an instruction counts
+    for an opcode whose name is its own up to a "." suffix. One pass of
+    `cuobjdump -sass`."""
     out = subprocess.run([find_cuobjdump(), "-sass", str(so_path)],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
-    counts: dict[str, int] = collections.Counter()
+    wanted = set(opcodes)
+    table: dict[str, dict[str, int]] = {}
     current = None
-    pattern = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?" + re.escape(opcode) + r"\b")
+    pattern = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)\b")
     for line in out.splitlines():
         if m := re.search(r"Function : (\S+)", line):
-            current = m.group(1)
-            counts[current] += 0
-        elif current is not None and pattern.search(line):
-            counts[current] += 1
-    return dict(counts)
+            current = table.setdefault(m.group(1), dict.fromkeys(wanted, 0))
+        elif current is not None and (m := pattern.search(line)) \
+                and m.group(1) in wanted:
+            current[m.group(1)] += 1
+    return table
 
 
 def nvidia_smi_line() -> str:

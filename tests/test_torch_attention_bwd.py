@@ -1,16 +1,19 @@
 """The attention's backward kernel, its plain twins and its autograd
 Function, on the CPU.
 
-`csrc/attention.cu`'s `attention_bwd_mma_kernel` runs only on a card.
-`tiled_backward` below follows its order of work in PyTorch: blocks of
-BWD_BLOCK_N (64) keys, zero-filled past N and given P = 0 there; query
-steps of BWD_BLOCK_M (64), whose lse (from the emulated forward,
-test_torch_attention_tiled.py's `tiled_attention`) is +inf past N, so that
-P is 0 there; D = rowsum(dO∘O) from the rounded output; Pᵀ = exp2(s·c −
-lse) in fp32; dP rounded to the input type after its product; dS = P∘(dP −
-D)/√d rounded to the input type for dK and dQ, P rounded for dV; dK and dV
-summed over query steps in fp32 and rounded once; dQ summed in fp32 over
-key blocks (the kernel's atomics) and rounded once.
+`csrc/attention.cu`'s backward kernels run only on a card. `tiled_backward`
+below follows the order of work of `attention_bwd_wgmma_kernel` in
+PyTorch: blocks of BWD_BLOCK_N (128) keys, two consumers of WG_KEYS (64)
+each, zero-filled past N and given P = 0 there; query steps of BWD_BLOCK_M
+(64), whose lse (from the emulated forward, test_torch_attention_tiled.py's
+`tiled_attention`) is +inf past N, so that P is 0 there; D = rowsum(dO∘O)
+from the rounded output; Pᵀ = exp2(s·c − lse) in fp32; dP rounded to the
+input type after its product; dS = P∘(dP − D)/√d rounded to the input type
+for dK and dQ, P rounded for dV; dK and dV summed over query steps in fp32
+and rounded once; dQ summed in fp32 as one partial a (consumer's 64 keys,
+query step), added into the fp32 scratch (the kernel's TMA reduce-adds) and
+rounded once. The mma.sync kernel (d 16, d 64, d 32 below N 257, and fp16
+at every N) has blocks of 64 keys: the same partials.
 
 Measured (this file's inputs), max over dq, dk, dv of max|Δ|/max|ref|
 (ops/attention.py's grad_rel_err):
@@ -62,8 +65,9 @@ from hybrid_diffusion_tpu_torch.ops.attention import (
 )
 from test_torch_attention_tiled import tiled_attention
 
-BWD_BLOCK_N = 64  # keys per block: the kernel's BWD_BLOCK_N
-BWD_BLOCK_M = 64  # queries per step: the kernel's BWD_BLOCK_M
+BWD_BLOCK_N = 128  # keys per block: the wgmma kernel's WGB_BLOCK_N
+WG_KEYS = 64      # keys a consumer warpgroup: one dQ partial a query step
+BWD_BLOCK_M = 64  # queries per step: the kernel's WGB_BLOCK_M
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
              torch.float16: jnp.float16}
 REL_TOL = {torch.bfloat16: 1.5e-2, torch.float16: 2e-3}
@@ -84,7 +88,7 @@ def tiled_backward(q, k, v, out, lse, dout, mask=True):
     qf, kf, vf, of, gf = (t.float().permute(0, 2, 1, 3)
                           for t in (q, k, v, out, dout))
     delta = (gf * of).sum(-1)                        # (B, h, N)
-    pad_n, pad_m = -N % BWD_BLOCK_N, -N % BWD_BLOCK_M
+    pad_n, pad_m = -N % WG_KEYS, -N % BWD_BLOCK_M
     kf, vf = (F.pad(t, (0, 0, 0, pad_n)) for t in (kf, vf))
     qf, gf = (F.pad(t, (0, 0, 0, pad_m)) for t in (qf, gf))
     lse = F.pad(lse, (0, pad_m), value=math.inf)
@@ -92,21 +96,22 @@ def tiled_backward(q, k, v, out, lse, dout, mask=True):
     dq = torch.zeros_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for n0 in range(0, N, BWD_BLOCK_N):
-        keys = slice(n0, n0 + BWD_BLOCK_N)
-        kt, vt = kf[:, :, keys], vf[:, :, keys]
-        padded = torch.arange(n0, n0 + BWD_BLOCK_N) >= N
-        for m0 in range(0, N, BWD_BLOCK_M):
-            rows = slice(m0, m0 + BWD_BLOCK_M)
-            qt, gt = qf[:, :, rows], gf[:, :, rows]
-            p = torch.exp2(kt @ qt.transpose(-1, -2) * c
-                           - lse[:, :, None, rows])  # Pᵀ: (keys, queries)
-            if mask:
-                p[:, :, padded] = 0.0
-            dp = rounded(vt @ gt.transpose(-1, -2))
-            ds = rounded(p * (dp - delta[:, :, None, rows]) * scale)
-            dv[:, :, keys] += rounded(p) @ gt
-            dk[:, :, keys] += ds @ qt
-            dq[:, :, rows] += ds.transpose(-1, -2) @ kt
+        for k0 in range(n0, min(n0 + BWD_BLOCK_N, N), WG_KEYS):  # a consumer
+            keys = slice(k0, k0 + WG_KEYS)
+            kt, vt = kf[:, :, keys], vf[:, :, keys]
+            padded = torch.arange(k0, k0 + WG_KEYS) >= N
+            for m0 in range(0, N, BWD_BLOCK_M):
+                rows = slice(m0, m0 + BWD_BLOCK_M)
+                qt, gt = qf[:, :, rows], gf[:, :, rows]
+                p = torch.exp2(kt @ qt.transpose(-1, -2) * c
+                               - lse[:, :, None, rows])  # Pᵀ: (keys, queries)
+                if mask:
+                    p[:, :, padded] = 0.0
+                dp = rounded(vt @ gt.transpose(-1, -2))
+                ds = rounded(p * (dp - delta[:, :, None, rows]) * scale)
+                dv[:, :, keys] += rounded(p) @ gt
+                dk[:, :, keys] += ds @ qt
+                dq[:, :, rows] += ds.transpose(-1, -2) @ kt  # one partial
     return tuple(x[:, :, :N].to(dt).permute(0, 2, 1, 3).contiguous()
                  for x in (dq, dk, dv))
 
@@ -354,9 +359,39 @@ NS = "_ZN45_GLOBAL__N__a758641a_12_attention_cu_1a880bbc"
     (NS + "25attention_fwd_tf32_kernelILi32ELi2EEEvPKfS2_S2_PfiiNS_7StridesES4_"
      "S4_f",
      ("attention_fwd_tf32_kernel/m2", torch.float32, 32)),
+    (NS + "26attention_fwd_wgmma_kernelI13__nv_bfloat16Li32ELb1EEEv14CUtensorMap_"
+     "stS2_S2_S2_Pfiiif",
+     ("attention_fwd_wgmma_kernel/lse", torch.bfloat16, 32)),
+    (NS + "26attention_fwd_wgmma_kernelI6__halfLi16ELb0EEEv14CUtensorMap_stS2_S2_"
+     "S2_Pfiiif",
+     ("attention_fwd_wgmma_kernel", torch.float16, 16)),
+    (NS + "26attention_bwd_wgmma_kernelI6__halfLi64EEEv14CUtensorMap_stS2_S2_S2_"
+     "S2_S2_S2_S2_S2_iiff",
+     ("attention_bwd_wgmma_kernel", torch.float16, 64)),
     (NS + "25attention_bwd_prep_kernelI6__halfLi32EEEvPKT_S4_PfS5_iilNS_"
      "7StridesES6_", None),
     (NS + "23attention_bwd_dq_kernelI13__nv_bfloat16EEvPKfPT_l", None),
 ])
 def test_kernel_instance_parses_the_mangled_names(symbol, expected):
     assert kernel_instance(symbol) == expected
+
+
+# (kind, (B, N, h, d), ms, what binds): the bound the card checks report,
+# the largest of the products, the bytes and the exponentials.
+@pytest.mark.parametrize("kind,shape,ms,by", [
+    ("forward", (8, 1024, 8, 32), 0.017207, "exponentials"),   # serve
+    ("forward", (160, 256, 8, 32), 0.025041, "bytes"),         # CFG sampler
+    ("backward", (80, 1024, 8, 16), 0.17207, "exponentials"),  # CFG train
+    ("backward", (8, 1024, 4, 32), 0.010857, "operations"),    # TP
+], ids=["serve", "cfg_n256", "cfg_bwd_n1024", "tp_bwd"])
+def test_bound_is_the_largest_of_products_bytes_and_exponentials(kind, shape,
+                                                                 ms, by):
+    B, N, h, d = shape
+    if kind == "forward":
+        work = (4.0 * B * h * N * N * d, 4.0 * B * N * h * d * 2, B * h * N * N)
+    else:
+        work = (10.0 * B * h * N * N * d, 8.0 * B * N * h * d * 2 + 4.0 * B * h * N,
+                B * h * N * N)
+    got_ms, got_by = port_attention.bound_ms(*work, "bfloat16")
+    assert got_by == by
+    assert got_ms == pytest.approx(ms, rel=1e-4)
