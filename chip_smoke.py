@@ -10,17 +10,18 @@ From a clean checkout, with no arguments, it:
             cuDNN, so that every fp32 number below is full fp32;
   2. build  compiles the CUDA attention kernels with nvcc (or reuses the
             library built from the same source) and loads them; prints each
-            of the 28 tensor-core kernel instances' registers and spills
+            of the 36 tensor-core kernel instances' registers and spills
             (ptxas) and its counts of the opcodes its route must show
             (cuobjdump -sass): HGMMA (wgmma), UTMALDG (TMA loads) and
             UTMASTG (TMA stores) for the wgmma forward and its lse instance
             in bf16 and fp16 at d 32 and 64 and for the bf16 wgmma backward
             at d 32, which also shows UTMAREDG (dQ's TMA reduce-add); HMMA
             (mma.sync) for the mma.sync forward and its lse instance at d 16
-            and 32, the mma.sync backward at d 16, 32 and 64, and for fp32
-            at d 16 and 32 with one and two m16 tiles a warp, and at d 64;
-            fails if one lacks an opcode or spills, or if the backward's
-            pre-pass or dQ conversion spills;
+            and 32, the mma.sync backward at d 16, 32 and 64, for the fp32
+            forward and its lse instance at d 16 and 32 with one and two m16
+            tiles a warp and at d 64 with one, and for the fp32 backward at
+            d 16, 32 and 64; fails if one lacks an opcode or spills, or if
+            the backward's pre-pass or dQ conversion spills;
   3. kernel holds the kernels against their plain PyTorch version on the
             card at the shapes the serve, path, train, loop, eval and cfg
             phases give them (the loop's probe at its own batch, 9; the CFG
@@ -31,7 +32,8 @@ From a clean checkout, with no arguments, it:
             the calls queued ahead of the card), and the wrapper's host time
             per call; prints the kernel that ran at each shape (the C
             dispatch's route: wgmma at d 32 from N 257, but not the fp16
-            backward, and the forward at d 64; mma.sync elsewhere) and
+            backward, and the forward at d 64; mma.sync elsewhere and in
+            fp32) and
             the bound, the largest of the products at the type's peak, the
             bytes at the memory rate and the exponentials at the special-
             function rate;
@@ -74,7 +76,9 @@ From a clean checkout, with no arguments, it:
             prints the median step time after the first, the peak memory
             and the card's nvidia-smi line;
   9. tparity one fp32 step (TF32 off) at 64², batch 2, from the npz, dropout
-            0, fixed t and noise, on the card and on the CPU: the losses
+            0, fixed t and noise, on the card (the fp32 forward's lse
+            instance and the fp32 backward kernel 4 times each) and on the
+            CPU: the losses
             within TRAIN_LOSS_RTOL and the gradients' difference within
             max(TRAIN_GRAD_FLOOR, 10 κ) of their norm, κ being the CPU
             step's own change when every weight moves by one ulp; prints
@@ -126,9 +130,10 @@ From a clean checkout, with no arguments, it:
             rank), each held against one process on the same batch,
             t and noise (loss and gradient norm within PAR_BF16_RTOL), the
             three again in fp32 at 64² (loss within TRAIN_LOSS_RTOL, the
-            first update's gradients within max(TRAIN_GRAD_FLOOR, 10 κ)),
-            and the batch-sharded sampler (DPM++2M-5, 8 images, fp32 at
-            64²) against one process (±1 level on at most
+            first update's gradients within max(TRAIN_GRAD_FLOOR, 10 κ);
+            each fp32 step launches the fp32 forward and backward kernels
+            4 times each), and the batch-sharded sampler (DPM++2M-5,
+            8 images, fp32 at 64²) against one process (±1 level on at most
             PAR_SAMPLE_MAX_SHARE of the bytes). Prints each rank's step
             times, peak memory and launches by shape, the collectives that
             gloo refuses on CUDA tensors and where they are checked
@@ -164,23 +169,25 @@ From a clean checkout, with no arguments, it:
             itself.
 
 The kernel phase also holds the attention's forward and gradients through
-the autograd Function, on strided views of one packed projection: in bf16
-(the forward kernel's lse instance and the backward kernel) against the
-fp32 plain version's autograd within the ops module's BWD_RTOL at the
+the autograd Function (the forward kernel's lse instance and the backward
+kernel), on strided views of one packed projection, against the fp32 plain
+version's autograd within the ops module's BWD_RTOL: in bf16 at the
 training paths' shapes (the flagship step's (16, 1024, 8, 32), the CFG
 step's four at batch 80, the head-sharded (8, 1024, 4, 32)), at the CFG
-sampler's four at 2B = 160 and at three ragged N = 1000 cases (bf16 and
-fp16 at d 32, and fp16 on mask-trap inputs at d 64); in fp32 (the fp32 kernel, the backward recomputed through
-the plain version) against the plain version's at (2, 64, 8, 32). It times
-forward + backward against scaled_dot_product_attention's, and the backward
-kernel alone against its plain twin and SDPA's backward alone.
+sampler's four at 2B = 160 and at ragged N = 1000 and 40 cases (bf16 and
+fp16 at d 32, and fp16 on mask-trap inputs); in fp32 (3xTF32) at the
+tparity shape (2, 64, 8, 32), the flagship and CFG train shapes in fp32
+and ragged N = 1000 at d 32 and 64. It times forward + backward against
+scaled_dot_product_attention's, and the backward kernel alone against its
+plain twin and SDPA's backward alone.
 
 Every phase prints one line with its seconds. The whole run must finish
 within BUDGET_S; a phase that fails or ends past the budget stops the run
 with a non-zero exit. The last lines are the kernels' JSON record (the
 bf16 kernel's serve-shape row carries the bench's launches beside the serve
 phase's, by mode, under bench_launches; the backward kernel has a row at
-each training path's shape), the card's nvidia-smi line and
+each training path's shape, the fp32 one at the tparity shape with its
+times at the fp32 train shapes), the card's nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 
@@ -271,15 +278,20 @@ KERNEL_CASES = [
     (2, 40, 8, 32, "float16", "mask trap"),
 ]
 
-# The fp32 reverse mode's gradient case: the tparity phase's shape (64²,
-# batch 2: N 8·8). Its Function's forward is the fp32 kernel, its backward
-# the plain version's autograd at the saved inputs, so its gradients agree
-# with the plain version's but for the order the card sums in (0 measured on
-# the CPU): within GRAD_RTOL of each gradient's largest value. GRAD_RTOL
-# serves this recomputed fp32 path only; bf16 and fp16 have the backward
-# kernel (att.BWD_RTOL, in ops/attention.py).
+# The fp32 backward kernel's gradient cases: the tparity phase's shape (64²,
+# batch 2: N 8·8), the flagship train step's and the CFG step's at N 1024 in
+# fp32 (bf16=False), and ragged N = 1000 at d 32 and 64. Held, as the 16-bit
+# backward is, against the fp32 plain version's autograd within
+# att.BWD_RTOL["float32", "randn"] (2e-5 of each gradient's largest value,
+# derived in ops/attention.py from the kernel's CPU emulation; dQ's atomics
+# reorder its fp32 sums from run to run).
 FP32_GRAD_CASE = (2, 64, 8, 32, "float32", "randn")
-GRAD_RTOL = {"float32": 1e-6}
+FP32_TRAIN_CASE = (16, 1024, 8, 32, "float32", "randn")
+FP32_CFG_TRAIN_CASE = (80, 1024, 8, 16, "float32", "randn")
+FP32_RAGGED_GRAD_CASES = [(4, 1000, 8, 32, "float32", "randn"),
+                          (2, 1000, 8, 64, "float32", "randn")]
+FP32_GRAD_CASES = ([FP32_GRAD_CASE, FP32_TRAIN_CASE, FP32_CFG_TRAIN_CASE]
+                   + FP32_RAGGED_GRAD_CASES)
 
 # The train phase's steps (the first one warms up and is left out of the
 # median); its settings are profile_train.py's FINE_TUNE: batch 16, the r5
@@ -288,6 +300,9 @@ TRAIN_STEPS = 5
 # A flagship bf16 training step (the 4 middle blocks' attention): the
 # forward kernel (its lse instance) and the backward kernel 4 times each.
 TRAIN_STEP_LAUNCHES = {"attention_fwd": 4, "attention_bwd": 4}
+# An fp32 step (bf16=False: tparity, the parallel phase's fp32 steps): the
+# fp32 forward's lse instance and the fp32 backward kernel 4 times each.
+FP32_STEP_LAUNCHES = {"attention_fwd_fp32": 4, "attention_bwd_fp32": 4}
 # The tparity phase's bounds. The loss: fp32 summed in another order (the
 # CPU tests hold the port's loss to JAX's at 1e-5). The gradients: ten times
 # κ, the change of the CPU step's gradients when every weight moves by one
@@ -420,13 +435,15 @@ ROUTE_OPCODES = {
     "attention_fwd_mma_kernel": ("HMMA",),
     "attention_bwd_mma_kernel": ("HMMA",),
     "attention_fwd_tf32_kernel": ("HMMA",),
+    "attention_bwd_tf32_kernel": ("HMMA",),
 }
 # In bf16 and fp16: the wgmma forward and its lse instance at d 32 and 64
 # (8), the mma.sync forward and its lse instance at d 16 and 32 (8), the
 # mma.sync backward at d 16, 32, 64 (6); in bf16 the wgmma backward at d 32
-# (1); fp32: d 16 and 32 with one and two m16 tiles a warp, d 64 with one
-# (5).
-TENSOR_CORE_INSTANCES = 28
+# (1); fp32: the forward and its lse instance at d 16 and 32 with one and
+# two m16 tiles a warp (8) and at d 64 with one (2), the backward at d 16,
+# 32, 64 (3).
+TENSOR_CORE_INSTANCES = 36
 
 
 def phase_build(att, cuda_build):
@@ -466,7 +483,8 @@ def phase_build(att, cuda_build):
              f"the wgmma forward and its lse instance at d 32, 64, the "
              f"mma.sync forward and its lse instance at d 16, 32, the "
              f"mma.sync backward at d 16, 32, 64; in bf16 the wgmma backward "
-             f"at d 32; fp32 twice at d 16 and 32, once at d 64)")
+             f"at d 32; fp32: the forward and its lse instance twice at d 16 "
+             f"and 32 and once at d 64, the backward at d 16, 32, 64)")
     for sym, res in sorted(resources.items()):
         if "attention_bwd_" in sym and res.spill_bytes:
             fail(f"{sym} spills {res.spill_bytes} bytes")
@@ -548,21 +566,20 @@ def phase_kernel(att, torch, device_ms, host_ms):
 
 
 def phase_grad(att, torch, device_ms):
-    """The attention's gradients through the autograd Function, on strided
-    views of one packed projection: bf16/fp16 (the forward and backward
-    kernels) against the fp32 plain version's autograd at KERNEL_GRAD_CASES,
-    fp32 (the recomputed backward) against the plain version's at
-    FP32_GRAD_CASE. Times forward + backward against SDPA's, and the
-    backward kernel alone against its plain twin and SDPA's backward alone
-    (its forward once, then the backward with retain_graph). Returns rows by
-    case."""
+    """The attention's gradients through the autograd Function (the forward
+    kernel's lse instance and the backward kernel), on strided views of one
+    packed projection, against the fp32 plain version's autograd at
+    FP32_GRAD_CASES (fp32) and KERNEL_GRAD_CASES (bf16, fp16). Times forward
+    + backward against SDPA's, and the backward kernel alone against its
+    plain twin and SDPA's backward alone (its forward once, then the
+    backward with retain_graph). Returns rows by case."""
     import numpy as np
     import torch.nn.functional as F
 
     gen = torch.Generator("cuda").manual_seed(1)
     rng = np.random.default_rng(1)
     rows = {}
-    for case in [FP32_GRAD_CASE] + KERNEL_GRAD_CASES:
+    for case in FP32_GRAD_CASES + KERNEL_GRAD_CASES:
         if case in rows:
             continue
         B, N, h, d, dname, inputs = case
@@ -573,7 +590,6 @@ def phase_grad(att, torch, device_ms):
             qkv = torch.from_numpy(mask_trap_qkv(rng, B, N, h, d)).cuda()
         qkv = qkv.to(dtype).requires_grad_()
         g = torch.randn(B, N, h, d, device="cuda", generator=gen).to(dtype)
-        kernel_bwd = dtype in att.BACKWARD_DTYPES
 
         def kernel_fwd_bwd():
             out = att.fused_spatial_attention(*qkv.unbind(2))
@@ -593,9 +609,8 @@ def phase_grad(att, torch, device_ms):
         torch.cuda.synchronize()
         launched = {k: n - before[k] for k, n in att.launch_counts.items()
                     if n != before[k]}
-        want = {att.KERNEL_BY_DTYPE[dtype]: 1}
-        if kernel_bwd:
-            want[att.BACKWARD_KERNEL] = 1
+        want = {att.KERNEL_BY_DTYPE[dtype]: 1,
+                att.BACKWARD_KERNEL_BY_DTYPE[dtype]: 1}
         if launched != want:
             fail(f"forward + backward at {case} launched {launched}, "
                  f"expected {want}")
@@ -618,12 +633,10 @@ def phase_grad(att, torch, device_ms):
         rel_same = att.grad_rel_err(grad.unbind(2), ref_same.unbind(2),
                                     common)
         _, sdpa_grad = sdpa_fwd_bwd()
-        err, tol = ((rel32, att.BWD_RTOL[dname, inputs]) if kernel_bwd
-                    else (rel_same, GRAD_RTOL[dname]))
+        err, tol = rel32, att.BWD_RTOL[dname, inputs]
         if not math.isfinite(err) or err > tol:
-            fail(f"attention gradients through the kernel{'s' * kernel_bwd} "
-                 f"disagree with the plain version's at {case}: "
-                 f"grad_rel_err {err} > {tol}")
+            fail(f"attention gradients through the kernels disagree with the "
+                 f"plain version's at {case}: grad_rel_err {err} > {tol}")
         row = dict(B=B, N=N, h=h, d=d, dtype=dname, inputs=inputs,
                    fwd_max_abs_err=fwd_err, fwd_tol=fwd_tol,
                    grad_rel_err=err, grad_tol=tol,
@@ -632,45 +645,48 @@ def phase_grad(att, torch, device_ms):
                    sdpa_grad_rel_err_vs_fp32=att.grad_rel_err(
                        sdpa_grad.unbind(2), ref32.unbind(2), common),
                    grad_max_abs_err=(grad.float() - ref32).abs().max().item())
-        timed = case not in RAGGED_GRAD_CASES
-        if kernel_bwd:
-            # The backward kernel alone, on the forward's own out and lse;
-            # twice, for the run-to-run spread of dQ's atomic sums.
-            q, k, v = qkv.detach().unbind(2)
-            o, lse = att.attention_forward_lse(q, k, v)
-            grads = att.attention_backward(q, k, v, o, lse, g)
-            again = att.attention_backward(q, k, v, o, lse, g)
-            twin = att.attention_backward_reference(q, k, v, o, lse, g)
+        timed = case not in RAGGED_GRAD_CASES + FP32_RAGGED_GRAD_CASES
+        # The backward kernel alone, on the forward's own out and lse;
+        # twice, for the run-to-run spread of dQ's atomic sums.
+        q, k, v = qkv.detach().unbind(2)
+        o, lse = att.attention_forward_lse(q, k, v)
+        grads = att.attention_backward(q, k, v, o, lse, g)
+        again = att.attention_backward(q, k, v, o, lse, g)
+        twin = att.attention_backward_reference(q, k, v, o, lse, g)
+        row.update(
+            twin_rel_err=att.grad_rel_err(grads, twin, common),
+            dq_spread=(grads[0] - again[0]).float().abs().max().item(),
+            dq_spread_rel=att.grad_rel_err(again[:1], grads[:1]),
+            dkdv_equal=all(torch.equal(a, b) for a, b in
+                           zip(grads[1:], again[1:])))
+        if timed:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            s_out = F.scaled_dot_product_attention(qt, kt, vt)
+            gt = g.transpose(1, 2)
+            # The function's inputs are q, k, v, out, lse and dout: it
+            # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each), and
+            # P again (N² exponentials).
+            bwd_bound_ms, bwd_bound_by = att.bound_ms(
+                10.0 * B * h * N * N * d,
+                8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N,
+                B * h * N * N, dname)
             row.update(
-                twin_rel_err=att.grad_rel_err(grads, twin, common),
-                dq_spread=(grads[0] - again[0]).float().abs().max().item(),
-                dq_spread_rel=att.grad_rel_err(again[:1], grads[:1]),
-                dkdv_equal=all(torch.equal(a, b) for a, b in
-                               zip(grads[1:], again[1:])))
-            if timed:
-                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                              for t in (q, k, v))
-                s_out = F.scaled_dot_product_attention(qt, kt, vt)
-                gt = g.transpose(1, 2)
-                # The function's inputs are q, k, v, out, lse and dout: it
-                # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each), and
-                # P again (N² exponentials).
-                bwd_bound_ms, bwd_bound_by = att.bound_ms(
-                    10.0 * B * h * N * N * d,
-                    8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N,
-                    B * h * N * N, dname)
-                row.update(
-                    bwd_route=att.kernel_route(dtype, N, d, backward=True),
-                    bwd_ms=device_ms(lambda: att.attention_backward(
-                        q, k, v, o, lse, g), reps=15, inner=5),
-                    plain_bwd_ms=device_ms(
-                        lambda: att.attention_backward_reference(
-                            q, k, v, o, lse, g), reps=5, inner=2),
-                    sdpa_bwd_ms=device_ms(lambda: torch.autograd.grad(
-                        s_out, (qt, kt, vt), gt, retain_graph=True),
-                        reps=15, inner=5),
-                    bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by)
-                del s_out
+                bwd_route=att.kernel_route(dtype, N, d, backward=True),
+                bwd_ms=device_ms(lambda: att.attention_backward(
+                    q, k, v, o, lse, g), reps=15, inner=5),
+                plain_bwd_ms=device_ms(
+                    lambda: att.attention_backward_reference(
+                        q, k, v, o, lse, g), reps=5, inner=2),
+                sdpa_bwd_ms=device_ms(lambda: torch.autograd.grad(
+                    s_out, (qt, kt, vt), gt, retain_graph=True),
+                    reps=15, inner=5),
+                bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by)
+            if dname == "float32":  # three TF32 products a product
+                row["bwd_tf32x3_floor_ms"] = (
+                    30.0 * B * h * N * N * d
+                    / att.H100_PEAKS["flops"][dname] * 1e3)
+            del s_out
         if timed:
             # forward 4 N²d products and N² exponentials, its vjp 8 and N²
             fwd_bwd_bound_ms, fwd_bwd_bound_by = att.bound_ms(
@@ -767,11 +783,13 @@ def phase_train(att, torch, np, smi):
                 losses=losses, card=smi)
 
 
-def phase_train_parity(torch, np):
+def phase_train_parity(att, torch, np):
     """One fp32 step at 64², batch 2, from the npz, dropout 0, fixed t and
     noise, on the card and on the CPU (and on the CPU from weights one ulp
     away, for κ, and on the card with TF32 on, to read beside the bound);
-    returns the phase's record."""
+    each card step must launch the fp32 forward (its lse instance) and the
+    fp32 backward kernel 4 times each (the middle blocks' attention) and no
+    other; returns the phase's record."""
     from hybrid_diffusion_tpu_torch.config import flagship_config
     from hybrid_diffusion_tpu_torch.diffusion import linear_beta_schedule
     from hybrid_diffusion_tpu_torch.profile_train import synthetic_batches
@@ -787,6 +805,7 @@ def phase_train_parity(torch, np):
     noise = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(
         np.float32))
     results = {}
+    launches = bwd_launches = 0
     runs = (("cuda", False, False), ("cpu", False, False),
             ("cpu", True, False), ("cuda", False, True))
     for device, nudge, tf32 in runs:
@@ -802,8 +821,16 @@ def phase_train_parity(torch, np):
         step = make_train_step(
             linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T),
             cfg.loss_config, dino_loss_fn=make_dino(cfg, device))
+        att.reset_launch_count()
         state, metrics = step(state, batch, torch.Generator(device), t=t,
                               noise=noise)
+        counts = {k: n for k, n in att.launch_counts.items() if n}
+        want = FP32_STEP_LAUNCHES if device == "cuda" else {}
+        if counts != want:
+            fail(f"the fp32 step on {device} (TF32 {tf32}) launched the "
+                 f"attention kernels {counts}, expected {want}")
+        launches += counts.get("attention_fwd_fp32", 0)
+        bwd_launches += counts.get("attention_bwd_fp32", 0)
         grads = torch.cat([p.grad.detach().flatten().cpu().double()
                            for p in state.params.values()])
         results[device, nudge, tf32] = (float(metrics["total"]), grads)
@@ -825,6 +852,7 @@ def phase_train_parity(torch, np):
              f"{grad_rel} of their norm > {grad_bound} (kappa {kappa})")
     return dict(loss_card=loss_gpu, loss_cpu=loss_cpu, loss_rel=loss_rel,
                 grad_rel=grad_rel, kappa=kappa, grad_bound=grad_bound,
+                launches=launches, bwd_launches=bwd_launches,
                 tf32_loss_rel=abs(loss_tf32 - loss_cpu) / abs(loss_cpu),
                 tf32_grad_rel=float((g_tf32 - g_cpu).norm() / g_cpu.norm()))
 
@@ -1508,6 +1536,12 @@ PAR_TIMEOUT_S = 110.0
 PAR_BATCH = 16            # DDP and ZeRO-1: global batch, 8 a rank
 PAR_TP_BATCH = 8          # TP: each rank holds the whole batch
 PAR_FP32_SIZE, PAR_FP32_BATCH = 64, 4
+# The fp32 comparisons at 64², each against one process and κ, each
+# case's seconds on rank 0 printed: DDP, TP (the head-sharded attention,
+# its fp32 forward and backward kernels on 4 heads) and ZeRO-1 (the
+# data-parallel mesh's gradient reduction with the sharded optimizer).
+PAR_FP32_CASES = (("ddp", "2x1", False), ("tp", "1x2", False),
+                  ("zero1", "2x1", True))
 # bf16: two ranks' batches of 8 run other cuDNN algorithms and sum the loss
 # and the gradients in another order than one batch of 16; bf16 keeps 8
 # bits, so each such difference is a few units of 2^-9 in the terms. The
@@ -1657,8 +1691,9 @@ def _par_world1(rank, workdir, argv, steps):
 
 def _par_rank(rank, workdir):
     """One of two gloo ranks on cuda:0: DDP (2×1), TP (1×2) and ZeRO-1
-    (2×1) steps at the flagship width in bf16 and again in fp32 at 64²,
+    (2×1) steps at the flagship width in bf16, TP and ZeRO-1 in fp32 at 64²,
     and the sharded sampler; rank 0 also runs each against one process."""
+    import copy
     import statistics
 
     import numpy as np
@@ -1684,6 +1719,17 @@ def _par_rank(rank, workdir):
                             rank=rank, world_size=2)
     meshes = {"2x1": make_mesh(2, 1), "1x2": make_mesh(1, 2)}
     main = rank == 0
+    built = {}
+
+    def model_of(cfg):
+        """init_params(cfg) on the card, and make_dino(cfg): each config's
+        weights (drawn from cfg.seed, then the npz) are made once a process
+        and copied for each run, which changes them; the DINO extractor is
+        frozen and shared (rank 0 sets up ten runs)."""
+        if id(cfg) not in built:
+            built[id(cfg)] = (init_params(cfg, "cpu"), make_dino(cfg, "cuda"))
+        model, dino = built[id(cfg)]
+        return copy.deepcopy(model).to("cuda"), dino
 
     def run(cfg, mesh, zero1, batch, t, noise, steps=1, grads=False,
             nudge=None):
@@ -1692,7 +1738,7 @@ def _par_rank(rank, workdir):
         generator `nudge`); the first step's metrics, each step's ms, and
         (grads) the first update's whole gradients, AdamW's first moment
         over 0.1, flattened in name order."""
-        model = init_params(cfg, "cuda")
+        model, dino = model_of(cfg)
         if nudge is not None:
             with torch.no_grad():
                 for p in model.parameters():
@@ -1705,8 +1751,8 @@ def _par_rank(rank, workdir):
             shard_state(mesh, state, zero1=zero1)
         step = make_train_step(
             linear_beta_schedule(cfg.beta_1, cfg.beta_T, cfg.T),
-            cfg.loss_config, dino_loss_fn=make_dino(cfg, "cuda"),
-            domain_routing=True, mesh=mesh)
+            cfg.loss_config, dino_loss_fn=dino, domain_routing=True,
+            mesh=mesh)
         local = (batch if mesh is None else shard_batch(mesh, batch))
         gen = torch.Generator("cuda").manual_seed(cfg.seed)
         first, ms = None, []
@@ -1778,17 +1824,28 @@ def _par_rank(rank, workdir):
     t = torch.from_numpy(rng.integers(0, cfg64.T, (B,))).cuda()
     noise = torch.from_numpy(rng.standard_normal(
         (B, PAR_FP32_SIZE, PAR_FP32_SIZE, 3)).astype(np.float32)).cuda()
-    fp32 = {}
-    for case, mesh_name, zero1 in (("ddp", "2x1", False), ("tp", "1x2", False),
-                                   ("zero1", "2x1", True)):
-        got, _ = run(cfg64, meshes[mesh_name], zero1, batch, t, noise,
-                     grads=True)
+    fp32, fp32_launches = {}, {}
+
+    def counted(name, *args, **kwargs):
+        """run(*args), its attention launches by kernel in fp32_launches."""
+        att.reset_launch_count()
+        got = run(*args, **kwargs)
+        fp32_launches[name] = {k: n for k, n in att.launch_counts.items() if n}
+        return got
+
+    seconds = {}
+    for case, mesh_name, zero1 in PAR_FP32_CASES:
+        t0 = time.perf_counter()
+        got, _ = counted(case, cfg64, meshes[mesh_name], zero1, batch, t,
+                         noise, grads=True)
+        seconds[case] = time.perf_counter() - t0
         fp32[case] = got
     fp32_rec = {}
     if main:
-        want, _ = run(cfg64, None, False, batch, t, noise, grads=True)
-        ulp, _ = run(cfg64, None, False, batch, t, noise, grads=True,
-                     nudge=np.random.default_rng(12))
+        want, _ = counted("one", cfg64, None, False, batch, t, noise,
+                          grads=True)
+        ulp, _ = counted("one_ulp", cfg64, None, False, batch, t, noise,
+                         grads=True, nudge=np.random.default_rng(12))
         g0 = want["grad"]
         kappa = float((ulp["grad"] - g0).norm() / g0.norm())
         for case, got in fp32.items():
@@ -1798,6 +1855,7 @@ def _par_rank(rank, workdir):
                 grad_rel=float((got["grad"] - g0).norm() / g0.norm()))
         fp32_rec["kappa"] = kappa
         fp32_rec["grad_bound"] = max(TRAIN_GRAD_FLOOR, 10 * kappa)
+        fp32_rec["seconds"] = seconds
     dist.barrier()
 
     # The sharded sampler: DPM++2M-5, 8 images, fp32 at 64², 2×1.
@@ -1820,7 +1878,8 @@ def _par_rank(rank, workdir):
                           shape=list(sharded.shape))
     dist.barrier()
     dist.destroy_process_group()
-    return dict(bf16=bf16, fp32=fp32_rec, sampler=sample_rec,
+    return dict(bf16=bf16, fp32=fp32_rec, fp32_launches=fp32_launches,
+                sampler=sample_rec,
                 step_ms_median={c: statistics.median(r["step_ms"][1:])
                                 for c, r in bf16.items()})
 
@@ -1867,7 +1926,7 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
             fail(f"{case} bf16 step: loss rel {rec['loss_rel']}, grad norm "
                  f"rel {rec['grad_norm_rel']} against one process, bound "
                  f"{PAR_BF16_RTOL}")
-    for case in ("ddp", "tp", "zero1"):
+    for case, _, _ in PAR_FP32_CASES:
         rec = r0["fp32"][case]
         if not (rec["loss_rel"] <= TRAIN_LOSS_RTOL
                 and rec["grad_rel"] <= r0["fp32"]["grad_bound"]):
@@ -1905,13 +1964,22 @@ def phase_parallel(torch, np, tmp: Path) -> dict:
                  f"{[r['bf16'][case]['launches'] for r in ranks]} and the "
                  f"backward {[r['bf16'][case]['bwd_launches'] for r in ranks]}"
                  f", expected each {{{ddp_shape!r}: 8}} a rank")
+    # Each fp32 step (one a case and rank, and rank 0's two one-process
+    # steps) runs the fp32 forward and backward kernels 4 times each.
+    for r, rank in enumerate(ranks):
+        for case, counts in rank["fp32_launches"].items():
+            if counts != FP32_STEP_LAUNCHES:
+                fail(f"rank {r}'s fp32 {case} step launched the attention "
+                     f"kernels {counts}, expected {FP32_STEP_LAUNCHES}")
+    fp32_bwd_launches = sum(c["attention_bwd_fp32"] for rank in ranks
+                            for c in rank["fp32_launches"].values())
     sm = r0["sampler"]
     if sm["shape"] != [PAR_SAMPLER_IMAGES, PAR_FP32_SIZE, PAR_FP32_SIZE, 3] \
             or sm["max_levels"] > 1 or sm["share"] > PAR_SAMPLE_MAX_SHARE:
         fail(f"the sharded sampler against one process: {sm}")
     return dict(ranks=ranks, gloo_seconds=seconds,
                 tp_launches=tp_launches, tp_bwd_launches=tp_bwd_launches,
-                tp_shape=tp_shape)
+                tp_shape=tp_shape, fp32_bwd_launches=fp32_bwd_launches)
 
 
 # The tools phase: the port's bench and scripts, each a subprocess started
@@ -2261,7 +2329,8 @@ def backward_row(g: dict, launches: int, **extra) -> dict:
     against the fp32 plain version's autograd, its time, its plain twin's
     and SDPA's backward alone."""
     return {
-        "name": "attention_bwd",
+        "name": "attention_bwd_fp32" if g["dtype"] == "float32"
+                else "attention_bwd",
         "shape": [g["B"], g["N"], g["h"], g["d"]],
         "route": "cuda",
         "kernel": g["bwd_route"],
@@ -2507,13 +2576,15 @@ def main() -> None:
 
     # ---------------------------------------------------------------- tparity
     t0 = time.perf_counter()
-    tp = phase_train_parity(torch, np)
+    tp = phase_train_parity(att, torch, np)
     phase_done("tparity", t0, (
         f"fp32 64² batch 2 step, card vs CPU: loss rel {tp['loss_rel']:.3e} "
         f"(limit {TRAIN_LOSS_RTOL}), gradients rel {tp['grad_rel']:.3e} "
         f"(limit {tp['grad_bound']:.3e}, κ {tp['kappa']:.3e}); with TF32 "
         f"on: loss rel {tp['tf32_loss_rel']:.3e}, gradients rel "
-        f"{tp['tf32_grad_rel']:.3e}"))
+        f"{tp['tf32_grad_rel']:.3e}; fp32 attention launches "
+        f"{tp['launches']} forward and {tp['bwd_launches']} backward (4 each "
+        f"a card step)"))
 
     # ---------------------------------------------------------------- loop
 
@@ -2632,10 +2703,12 @@ def main() -> None:
             f"{c} {rec['loss_rel']:.1e}/{rec['grad_norm_rel']:.1e}"
             for c, rec in r0["bf16"].items())
         + f"; fp32 64² gradients rel " + ", ".join(
-            f"{c} {r0['fp32'][c]['grad_rel']:.1e}"
-            for c in ("ddp", "tp", "zero1"))
+            f"{c} {r0['fp32'][c]['grad_rel']:.1e} "
+            f"({r0['fp32']['seconds'][c]:.2f}s)"
+            for c, _, _ in PAR_FP32_CASES)
         + f" (bound {r0['fp32']['grad_bound']:.1e}, κ "
-        f"{r0['fp32']['kappa']:.1e}); sampler {r0['sampler']['max_levels']} "
+        f"{r0['fp32']['kappa']:.1e}; {par['fp32_bwd_launches']} fp32 backward "
+        f"launches, 4 a step); sampler {r0['sampler']['max_levels']} "
         f"level(s) on {r0['sampler']['share']:.2e} of the bytes; "
         f"head-sharded kernel {par['tp_shape']}: {par['tp_launches']} "
         f"forward launches, {tp_row['kernel_ms']:.5f} ms (SDPA "
@@ -2735,6 +2808,22 @@ def main() -> None:
             grad_rows[case],
             cf["train_bwd_launches_by_shape"][f"B{B} N{N} h{h} d{d}"]))
     kernels.append(backward_row(grad_rows[TP_CASE], par["tp_bwd_launches"]))
+    # The fp32 backward kernel at the tparity shape, with its launches in
+    # the tparity phase's card steps and the parallel phase's fp32 steps;
+    # beside it, its times at the fp32 flagship and CFG train shapes, which
+    # no phase trains at.
+    kernels.append(backward_row(
+        grad_rows[FP32_GRAD_CASE], tp["bwd_launches"] + par["fp32_bwd_launches"],
+        tparity_launches=tp["bwd_launches"],
+        parallel_launches=par["fp32_bwd_launches"],
+        tf32x3_floor_ms=grad_rows[FP32_GRAD_CASE]["bwd_tf32x3_floor_ms"],
+        other_shapes={
+            "B{} N{} h{} d{}".format(*case[:4]): {
+                k: grad_rows[case][k] for k in (
+                    "bwd_ms", "plain_bwd_ms", "sdpa_bwd_ms", "bwd_bound_ms",
+                    "bwd_bound_by", "bwd_tf32x3_floor_ms", "fwd_bwd_ms",
+                    "sdpa_fwd_bwd_ms", "grad_rel_err", "dq_spread")}
+            for case in (FP32_TRAIN_CASE, FP32_CFG_TRAIN_CASE)}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,20 +14,24 @@ others), beside PyTorch's scaled_dot_product_attention. Prints one JSON line
 per shape (each variant's error, the kernel its dispatch chose, its times)
 and the card's nvidia-smi line.
 
-  (no flag)   the fp32 forward (EDITS, SHAPES; max abs error <= 1e-5, as in
-              chip_smoke.py), beside SDPA in fp32 with TF32 off;
+  (no flag)   the fp32 mma.sync forward's design choices (EDITS, SHAPES;
+              max abs error <= 1e-5, as in chip_smoke.py), beside SDPA in
+              fp32 with TF32 off;
   --forward   the bf16/fp16 forward (FWD_EDITS, FWD_SHAPES: the wgmma
               kernel's choices, where the dispatch sends a shape, and the
               route itself: wgmma or mma.sync at every N), within 2^-6 of
-              max|out|;
-  --backward  the bf16/fp16 backward (BWD_EDITS, BWD_SHAPES): each variant's
+              max|out|; and the fp32 forward (3xTF32, one route) at
+              FP32_FWD_SHAPES with the kept library alone, within 1e-5,
+              beside SDPA in fp32;
+  --backward  the backward (BWD_EDITS, BWD_SHAPES): each variant's
               `hd_attention_bwd` on the kept forward's output and lse, held
               against the plain twin `attention_backward_reference` within
               the ops module's BWD_RTOL for its dtype, except for the
               diagnostic variants (DIAGNOSTIC: they leave work out to show
               its cost, so their gradients are wrong and are only timed),
               beside SDPA's backward alone (its forward once, then the
-              backward with retain_graph).
+              backward with retain_graph); fp32 (3xTF32, one route) at its
+              shapes with the kept library alone.
 """
 
 from __future__ import annotations
@@ -58,17 +62,10 @@ EDITS = {
     # One m16 tile a warp at d 16.
     "one_tile_d16": [("{ return D <= 32 ? 2 : 1; }",
                       "{ return D == 32 ? 2 : 1; }")],
-    # Key tiles of 64 keys (d 64 then needs more than 48 KiB of shared
-    # memory, which the launch opts into).
+    # Key tiles of 64 keys (the launch opts into more than 48 KiB of shared
+    # memory where a d needs it).
     "block_n64": [
-        ("constexpr int TF32_BLOCK_N = 32;", "constexpr int TF32_BLOCK_N = 64;"),
-        ("static_assert(tf32_smem_bytes(64) <= 48 * 1024, "
-         "\"no opt-in to more shared memory\");\n", ""),
-        ("  attention_fwd_tf32_kernel<D, MT><<<",
-         "  cudaFuncSetAttribute(attention_fwd_tf32_kernel<D, MT>,\n"
-         "                       cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
-         "                       tf32_smem_bytes(D));\n"
-         "  attention_fwd_tf32_kernel<D, MT><<<")],
+        ("constexpr int TF32_BLOCK_N = 32;", "constexpr int TF32_BLOCK_N = 64;")],
     # K and V fragments read with plain (not volatile) loads.
     "plain_loads": [(
         "  if constexpr (W == 4)\n"
@@ -84,6 +81,10 @@ EDITS = {
         "  return;\n"
         "  if constexpr (W == 4)\n"
         "    asm volatile(\"ld.volatile.shared.v4.f32")],
+    # Q's lo fragments in registers at d 64 too, not in shared memory (the
+    # LSE instance spilled so).
+    "q_lo_registers": [("constexpr bool tf32_q_lo_shared(int D) { return D == 64; }",
+                        "constexpr bool tf32_q_lo_shared(int D) { return false; }")],
     # No promise of one block a multiprocessor.
     "no_launch_bound": [("__launch_bounds__(TF32_THREADS, 1)",
                          "__launch_bounds__(TF32_THREADS)")],
@@ -127,6 +128,10 @@ FWD_EDITS = {
     "mma_sync": MMA_SYNC,
 }
 FWD_VARIANTS = {"kept": [], **{name: [name] for name in FWD_EDITS}}
+# (B, N, h, d): the fp32 serving call (bf16=False), the path and tparity
+# phases' 64², the CFG sampler's N 1024 at 2B = 160 in fp32, d 64.
+FP32_FWD_SHAPES = [(8, 1024, 8, 32, "float32"), (2, 64, 8, 32, "float32"),
+                   (160, 1024, 8, 16, "float32"), (2, 1024, 8, 64, "float32")]
 # (B, N, h, d, dtype): in bf16 the flagship serving call, the CFG sampler's
 # four at 2B = 160, the head-sharded TP step; in fp16 the serving and TP
 # shapes (fp16 takes the dispatch that bf16's times chose).
@@ -160,7 +165,10 @@ DIAGNOSTIC = {"no_dq_reduce"}
 BWD_SHAPES = [(16, 1024, 8, 32, "bfloat16"), (8, 1024, 4, 32, "bfloat16"),
               (80, 1024, 8, 16, "bfloat16"), (80, 256, 8, 32, "bfloat16"),
               (80, 64, 8, 32, "bfloat16"), (80, 16, 8, 32, "bfloat16"),
-              (16, 1024, 8, 32, "float16"), (8, 1024, 4, 32, "float16")]
+              (16, 1024, 8, 32, "float16"), (8, 1024, 4, 32, "float16"),
+              # fp32 (bf16=False): the flagship and CFG train steps, tparity.
+              (16, 1024, 8, 32, "float32"), (80, 1024, 8, 16, "float32"),
+              (2, 64, 8, 32, "float32")]
 # mode -> (variants, edits)
 MODES = {"fp32": (VARIANTS, EDITS), "forward": (FWD_VARIANTS, FWD_EDITS),
          "backward": (BWD_VARIANTS, BWD_EDITS)}
@@ -172,7 +180,11 @@ SHAPES = [(8, 1024, 8, 32), (2, 64, 8, 32), (8, 64, 8, 32), (2, 256, 8, 32),
 
 
 def variant_source(edits: list[str], table: dict) -> str:
-    src = (cuda_build.CSRC_DIR / att.SOURCE).read_text()
+    """The source with the routes' header inlined (a variant is built from
+    its own folder), then the edits."""
+    src = (cuda_build.CSRC_DIR / att.SOURCE).read_text().replace(
+        f'#include "{att.ROUTE_HEADER}"\n',
+        (cuda_build.CSRC_DIR / att.ROUTE_HEADER).read_text())
     for name in edits:
         for old, new in table[name]:
             if src.count(old) != 1:
@@ -218,15 +230,17 @@ def build_all(mode: str) -> dict[str, cuda_build.BuiltLibrary]:
 def main_forward() -> None:
     built = build_all("forward")
     gen = torch.Generator("cuda").manual_seed(0)
-    order = list(FWD_VARIANTS) + list(reversed(FWD_VARIANTS))
-    for B, N, h, d, dtype in FWD_SHAPES:
+    for B, N, h, d, dtype in FWD_SHAPES + FP32_FWD_SHAPES:
+        fp32 = dtype == "float32"
+        names = ["kept"] if fp32 else list(FWD_VARIANTS)
+        order = names + names[::-1]
         qkv = torch.randn(B, N, 3, h, d, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
         q, k, v = qkv.unbind(2)  # the model's packed, strided views
         ref = att.attention_reference(q.float(), k.float(), v.float())
-        tol = FWD_RTOL * ref.abs().max().item()
+        tol = ATOL if fp32 else FWD_RTOL * ref.abs().max().item()
         row = {"shape": [B, N, h, d], "dtype": dtype}
-        times: dict[str, list[float]] = {name: [] for name in FWD_VARIANTS}
+        times: dict[str, list[float]] = {name: [] for name in names}
         for name in order:
             fn = built[name].lib.hd_attention_fwd
             if not times[name]:
@@ -246,6 +260,9 @@ def main_forward() -> None:
         row["bound_ms"], row["bound_by"] = att.bound_ms(
             4.0 * B * h * N * N * d, 4.0 * B * N * h * d * q.element_size(),
             B * h * N * N, dtype)
+        if fp32:  # three TF32 products a product
+            row["tf32x3_floor_ms"] = (12.0 * B * h * N * N * d
+                                      / att.H100_PEAKS["flops"][dtype] * 1e3)
         for name, ms in times.items():
             row[f"{name}_ms"] = ms
         print(json.dumps(row), flush=True)
@@ -254,8 +271,9 @@ def main_forward() -> None:
 def main_backward() -> None:
     built = build_all("backward")
     gen = torch.Generator("cuda").manual_seed(0)
-    order = list(BWD_VARIANTS) + list(reversed(BWD_VARIANTS))
     for B, N, h, d, dtype in BWD_SHAPES:
+        names = list(BWD_VARIANTS) if dtype != "float32" else ["kept"]
+        order = names + names[::-1]
         qkv = torch.randn(B, N, 3, h, d, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
         q, k, v = qkv.unbind(2)  # the model's packed, strided views
@@ -267,7 +285,7 @@ def main_backward() -> None:
         # that chip_smoke.py holds the kernel to against the fp32 autograd.
         tol = att.BWD_RTOL[dtype, "randn"]
         row = {"shape": [B, N, h, d], "dtype": dtype}
-        times: dict[str, list[float]] = {name: [] for name in BWD_VARIANTS}
+        times: dict[str, list[float]] = {name: [] for name in names}
         for name in order:
             lib = built[name].lib
 
@@ -292,8 +310,12 @@ def main_backward() -> None:
         # q, k, v, out, dout in and dq, dk, dv out, with lse; S again, dP,
         # dV, dK and dQ; P again.
         row["bound_ms"], row["bound_by"] = att.bound_ms(
-            10.0 * B * h * N * N * d, 8.0 * B * N * h * d * 2 + 4.0 * B * h * N,
+            10.0 * B * h * N * N * d,
+            8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N,
             B * h * N * N, dtype)
+        if dtype == "float32":  # three TF32 products a product
+            row["tf32x3_floor_ms"] = (30.0 * B * h * N * N * d
+                                      / att.H100_PEAKS["flops"][dtype] * 1e3)
         for name, ms in times.items():
             row[f"{name}_ms"] = ms
         print(json.dumps(row), flush=True)

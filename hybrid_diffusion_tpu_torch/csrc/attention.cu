@@ -1,11 +1,11 @@
 // Fused spatial self-attention for the U-Net bottleneck, sm_90a: the
-// forward, and the backward of its bf16/fp16 form.
+// forward and the backward, in bf16, fp16 and fp32.
 //
 // Replaces the TPU kernel hybrid_diffusion_tpu/ops/attention.py:63,
 // _pallas_attention (body _attention_kernel): out = softmax(q·kᵀ/√d)·v for
 // every (batch, head) slice, with fp32 scores and softmax and the output in
-// the input dtype. By dtype (hd_attention_fwd), and for bf16/fp16 by (N, d)
-// as measured on an H100 (mma_fwd; PERF.md):
+// the input dtype. By dtype (hd_attention_fwd), and by (N, d) as measured on
+// an H100 (the routes: attention_route.h; PERF.md):
 //
 //   attention_fwd_wgmma_kernel (bf16, fp16 at d 32 from N = WG_MIN_N, 257,
 //     and at d 64): Hopper's warpgroup products (wgmma) fed by TMA,
@@ -100,7 +100,9 @@
 //   each key step's three products are summed in a zeroed fragment that is
 //   added to the output with an FADD.
 // - Registers: Q's hi and lo fragments take 4·d/8·2 per m16 tile, so d 64
-//   holds one m16 tile a warp and d 16 and 32 two. Key tiles of 32 keys
+//   would hold one m16 tile a warp and d 16 and 32 hold two. (At d 64 the
+//   wgmma kernel runs instead: this one's lse instance spilled.) Key tiles
+//   of 32 keys
 //   keep half the scores of 64 live; P·V walks the output tiles W at a time,
 //   so that only W tiles' V fragments are live; K and V fragments are read
 //   with volatile loads, and the kernel promises one block a multiprocessor
@@ -108,12 +110,15 @@
 // Keys at or past N are zero-filled and masked as above. This route needs
 // 16-byte-aligned pointers and strides in multiples of 4 elements.
 //
-// The backward (bf16, fp16) replaces the reverse mode of the TPU kernel:
+// The backward replaces the reverse mode of the TPU kernel:
 // _pallas_attention_bwd (hybrid_diffusion_tpu/ops/attention.py:98), the vjp
 // of _xla_attention at the saved q, k, v. It computes dq, dk, dv from q, k,
 // v, the forward's output O and its per-row log-sum-exp (the forward's LSE
 // instance writes lse = m·c + log2(l), c = log2(e)/√d, at its epilogue), and
-// dO; three kernels on one stream, one launch to the wrapper:
+// dO. In fp32 two kernels, the pre-pass and attention_bwd_tf32_kernel
+// (3xTF32 on mma.sync, FA2's order, dQ summed into dq itself; see the
+// kernel); in bf16 and fp16 three kernels on one stream, one launch to the
+// wrapper:
 //   attention_bwd_prep_kernel  D = rowsum(dO∘O) in fp32 (FA2's identity,
 //     for rowsum(P∘dP)), and the fp32 dQ accumulator set to zero;
 //   attention_bwd_wgmma_kernel one block a (key tile of 128, batch·head),
@@ -182,6 +187,8 @@
 
 #include <atomic>
 #include <type_traits>
+
+#include "attention_route.h"
 
 namespace {
 
@@ -568,15 +575,17 @@ constexpr int bwd_smem_bytes(int D) {
          BWD_BLOCK_N * BWD_BLOCK_M * 2 + 2 * BWD_STAGES * BWD_BLOCK_M * 4;
 }
 
-// The pre-pass, one 16-byte chunk (8 values) of a (b, n, h) row a thread,
-// D/8 neighbouring lanes a row: D = rowsum(dO∘O) in fp32 into the contiguous
-// (B, h, N) `delta`, and the row's fp32 dQ accumulator set to zero.
+// The pre-pass, one 16-byte chunk (8 values of 16 bits, 4 of fp32) of a
+// (b, n, h) row a thread, D/8 (D/4) neighbouring lanes a row: D = rowsum(dO∘O)
+// in fp32 into the contiguous (B, h, N) `delta`, and the row's fp32 dQ
+// accumulator set to zero.
 template <typename T, int D>
 __global__ void __launch_bounds__(BWD_PREP_THREADS)
 attention_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                           float* __restrict__ delta, float* __restrict__ dq_acc,
                           int N, int H, int64_t rows, Strides os, Strides dos) {
-  constexpr int G = D / 8;  // lanes of one row; G divides 32
+  constexpr int PER = 16 / sizeof(T);  // values a chunk
+  constexpr int G = D / PER;           // lanes of one row; G divides 32
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * BWD_PREP_THREADS + threadIdx.x;
   const int64_t row = idx / G;  // (b·N + n)·H + h
   const int chunk = static_cast<int>(idx % G);
@@ -587,16 +596,21 @@ attention_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const int64_t b = bn / N;
   float sum = 0.f;
   if (valid) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + n * os.n + head * os.h + chunk * 8);
-    const uint4 gv = *reinterpret_cast<const uint4*>(dout + b * dos.b + n * dos.n + head * dos.h + chunk * 8);
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + n * os.n + head * os.h + chunk * PER);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + b * dos.b + n * dos.n + head * dos.h + chunk * PER);
     const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 a = Mma<T>::unpack(ow[i]), c = Mma<T>::unpack(gw[i]);
-      sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
+      if constexpr (std::is_same_v<T, float>) {
+        sum = fmaf(__uint_as_float(ow[i]), __uint_as_float(gw[i]), sum);
+      } else {
+        const float2 a = Mma<T>::unpack(ow[i]), c = Mma<T>::unpack(gw[i]);
+        sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
+      }
     }
-    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + chunk * 8);
-    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + chunk * PER);
+#pragma unroll
+    for (int i = 0; i < PER / 4; ++i) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -875,23 +889,7 @@ constexpr int WG_THREADS = 128;  // a warpgroup
 // thread at 168 registers, as a producer warpgroup does (12 warps); eight
 // warps have 255. ptxas kept the 168 under setmaxnreg and spilled (PERF.md).
 constexpr int WG_ROWS = 64;      // rows of a wgmma tile (M)
-// Where the mma.sync kernels above run in place of the wgmma ones, as
-// measured on an H100 (attention_variants.py; PERF.md): at d 16 (the
-// forward and the backward), at d 32 below N = WG_MIN_N, the backward at
-// d 64 (there the wgmma one spills) and the fp16 backward at every N (ptxas
-// serializes its wgmma instance, C7517 and C7514, which ran 5% slower than
-// the mma.sync one at (16, 1024, 8, 32)). mma_fwd_built: the d the mma.sync
-// forward instances are built for; wgf_built, wgb_built: the wgmma ones'.
-constexpr int WG_MIN_N = 257;
-__host__ __device__ constexpr bool mma_fwd(int N, int D) {
-  return D == 16 || (D == 32 && N < WG_MIN_N);
-}
-__host__ __device__ constexpr bool mma_bwd(int N, int D, bool fp16) {
-  return fp16 || D != 32 || N < WG_MIN_N;
-}
-__host__ __device__ constexpr bool mma_fwd_built(int D) { return D <= 32; }
-__host__ __device__ constexpr bool wgf_built(int D) { return D != 16; }
-__host__ __device__ constexpr bool wgb_built(int D, bool fp16) { return !fp16 && D == 32; }
+// The routes by dtype, N and d: attention_route.h.
 
 // Byte offset `off` in a tile whose rows are permuted by TMA's swizzle of SW
 // bytes (32, 64 or 128): the 16-byte chunk index (bits 4..) XOR the bits 7..
@@ -1754,10 +1752,13 @@ __host__ __device__ constexpr int tf32_m_tiles(int D) { return D <= 32 ? 2 : 1; 
 // (rows 2t, columns W·g) need stride/4 odd.
 __host__ __device__ constexpr int tf32_k_stride(int D) { return (D / 4) % 8 == 4 ? D : D + 16; }
 __host__ __device__ constexpr int tf32_v_stride(int D) { return D + 4; }
+// At d 64 each warp keeps its Q lo fragments in shared memory, not in
+// registers (below): 16 bytes a lane and k step.
+__host__ __device__ constexpr bool tf32_q_lo_shared(int D) { return D == 64; }
 constexpr int tf32_smem_bytes(int D) {
-  return TF32_STAGES * TF32_BLOCK_N * (tf32_k_stride(D) + tf32_v_stride(D)) * 4;
+  return TF32_STAGES * TF32_BLOCK_N * (tf32_k_stride(D) + tf32_v_stride(D)) * 4 +
+         (tf32_q_lo_shared(D) ? TF32_WARPS * (D / 8) * 32 * 16 : 0);
 }
-static_assert(tf32_smem_bytes(64) <= 48 * 1024, "no opt-in to more shared memory");
 
 // x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, with
 // the 13 low bits zero: cvt.rna.tf32.f32 written out, so that the CPU
@@ -1811,6 +1812,16 @@ __device__ __forceinline__ void load_vec(float (&x)[W], uint32_t addr) {
     asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2];\n"
                  : "=f"(x[0]), "=f"(x[1]) : "r"(addr));
 }
+// A lane's four TF32 A-fragment registers to and from shared memory, as one
+// 16-byte access (the volatile load stays in program order, as load_vec's).
+__device__ __forceinline__ void store_frag(uint32_t addr, const uint32_t (&a)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]));
+}
+__device__ __forceinline__ void load_frag(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ld.volatile.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
 template <int W>
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[W]) {
   if constexpr (W == 4)
@@ -1832,15 +1843,20 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[W]) {
 // - P·V, n = d: column g of output tile nt is d 8W·(nt/W) + W·g + nt%W, W =
 //   min(D/8, 4). A lane reads the V values of all tiles at one key as W
 //   contiguous floats, and holds 2W contiguous output values per row group.
-// One block a multiprocessor is all that __launch_bounds__ promises: with it
-// ptxas fits d 64 in 255 registers without spills, and small grids and d 16
-// ran faster on an H100 (PERF.md).
-template <int D, int MT>
+// One block a multiprocessor is all that __launch_bounds__ promises: small
+// grids and d 16 ran faster on an H100 (PERF.md). At d 64 Q's hi and lo
+// fragments would take 128 of the 255 registers, and the LSE instance
+// spilled, so each lane keeps its Q lo fragments in shared memory
+// (tf32_q_lo_shared) and reads one a k step; a lane reads only what it
+// wrote, so no barrier.
+// With LSE the kernel also writes each query row's log-sum-exp, as the
+// 16-bit kernels' LSE instances do: the fp32 backward's P is exp2(s·c − lse).
+template <int D, int MT, bool LSE>
 __global__ void __launch_bounds__(TF32_THREADS, 1)
 attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
-                          int N, int H, Strides qs, Strides ks, Strides vs,
-                          float scale_log2) {
+                          float* __restrict__ lse, int N, int H, Strides qs, Strides ks,
+                          Strides vs, float scale_log2) {
   constexpr int KSTEPS = D / 8;             // k8 steps of Q·Kᵀ
   constexpr int S_TILES = TF32_BLOCK_N / 8; // n8 score tiles = k8 steps of P·V
   constexpr int O_TILES = D / 8;            // n8 tiles of the output
@@ -1850,6 +1866,8 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sk = smem_u32(smem);
   const uint32_t sv = sk + TF32_STAGES * K_FLOATS * 4;
+  constexpr bool Q_LO_SHARED = tf32_q_lo_shared(D);
+  static_assert(!Q_LO_SHARED || MT == 1, "one m16 tile a warp keeps its Q lo in shared memory");
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -1858,6 +1876,7 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (blockIdx.x * TF32_WARPS + warp) * MT * 16;  // MT m16 tiles a warp
+  const uint32_t sq = sv + TF32_STAGES * V_FLOATS * 4 + warp * KSTEPS * 32 * 16;  // Q lo
   const float* q_base = q + b * qs.b + head * qs.h;
   const float* k_base = k + b * ks.b + head * ks.h;
   const float* v_base = v + b * vs.b + head * vs.h;
@@ -1894,6 +1913,9 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
         split_tf32(x.w, qh[mt][2 * i + 1][half + 2], ql[mt][2 * i + 1][half + 2]);
       }
     }
+  if constexpr (Q_LO_SHARED)
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) store_frag(sq + (kk * 32 + lane) * 16, ql[0][kk]);
 
   float acc[MT][O_TILES][4];  // unnormalised output rows g and g+8 of each m16
   float m_run[MT][2];         // running max of the raw scores of each row
@@ -1943,7 +1965,13 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
         s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) {
-          mma_tf32(s[mt][j], ql[mt][kk], kh[kk]);
+          if constexpr (Q_LO_SHARED) {
+            uint32_t a[4];
+            load_frag(a, sq + (kk * 32 + lane) * 16);
+            mma_tf32(s[mt][j], a, kh[kk]);
+          } else {
+            mma_tf32(s[mt][j], ql[mt][kk], kh[kk]);
+          }
           mma_tf32(s[mt][j], qh[mt][kk], kl[kk]);
         }
 #pragma unroll
@@ -2032,16 +2060,26 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
   cp_async_wait<0>();  // only empty groups remain; leave none behind
 
-  // Epilogue: divide by l and write each row < N straight from the
-  // fragments: a lane holds d 8W·grp + 2W·t .. +2W−1 of rows g and g+8.
+  // Epilogue: the rows' sums over their quads, each row's lse (LSE), then
+  // divide by l and write each row < N straight from the fragments: a lane
+  // holds d 8W·grp + 2W·t .. +2W−1 of rows g and g+8.
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float& l = l_run[mt][half];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = m0 + mt * 16 + g + 8 * half;
+      if constexpr (LSE)
+        if (t == 0 && row < N)
+          lse[static_cast<int64_t>(bh) * N + row] = m_run[mt][half] * scale_log2 + log2f(l);
+    }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      float l = l_run[mt][half];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv_l = 1.f / l;
+      const float inv_l = 1.f / l_run[mt][half];
       const int row = m0 + mt * 16 + g + 8 * half;
       if (row >= N) continue;
       float* dst = o + ((static_cast<int64_t>(b) * N + row) * H + head) * D;
@@ -2055,6 +2093,373 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
           store_vec<W>(dst + 8 * W * grp + W * (2 * t + c), x);
         }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 backward: 3xTF32 on mma.sync (m16n8k8), the FlashAttention-2 order of
+// attention_bwd_mma_kernel: one block a (key tile of TB_BLOCK_N, batch·head),
+// warp w owning keys 16w..16w+15 as one m16 tile, walking the query tiles of
+// TB_BLOCK_M in sub-steps of tb_sub_m(d) queries:
+//   Sᵀ  = K·Qᵀ      A: K (registers at d 16, 32; read each step at d 64)  B: Q rows
+//   dPᵀ = V·dOᵀ     A: V (read each step)                                B: dO rows
+//   dV += Pᵀ·dO     A: Pᵀ (Sᵀ's C fragments)   B: dO, read across its rows
+//   dK += dSᵀ·Q     A: dSᵀ (C fragments)       B: Q, read across its rows
+//   dQ += dS·K      A: the dSᵀ tile, read across its rows  B: K, read across its rows
+// Every product is three TF32 products (a_lo·b_hi, a_hi·b_lo, a_hi·b_hi) of
+// operands split as the forward splits them (split_tf32), P and dS in fp32.
+// Sᵀ and dPᵀ sum over d into one accumulator; dV, dK and dQ, which sum over
+// many k steps, take each step's three products in a zeroed fragment and add
+// it with an FADD, as the forward's P·V does (the tensor cores round each
+// mma's sum toward zero). ldmatrix.trans takes only 16-bit types, so the
+// three operands read across their rows (Pᵀ·dO's dO, dSᵀ·Q's Q, dS·K's K and
+// dS) come from plain shared-memory loads: a lane reads W = min(d/8, 4)
+// neighbouring d values of one row (the forward's P·V map of n to d), and dS
+// one value at (key t, query g). The K, V, Q and dO tiles have a row stride
+// of d + 8 floats with the 16-byte chunks of rows 4..7 of every 8 swapped in
+// pairs (tb_off), which keeps both read patterns of each tile (rows g, or
+// rows 2t and 2t+1 / t and t+4) free of bank conflicts at d 16, 32 and 64;
+// the dSᵀ tile, written from C fragments and read one value a lane, has a
+// row stride of TB_BLOCK_M + 8 (tests/test_torch_attention_bwd_tf32.py
+// checks both). dQ's fp32 partial of each (block, query tile) is added to
+// the caller's dq with float2 atomics, so its low bits vary from run to run;
+// dK and dV are written once.
+constexpr int TB_WARPS = 4;
+constexpr int TB_THREADS = 32 * TB_WARPS;
+constexpr int TB_BLOCK_N = 16 * TB_WARPS;  // keys a block
+constexpr int TB_BLOCK_M = 64;             // queries a step
+// Queries a sub-step of Sᵀ, dPᵀ, dV and dK: their scores and dP are live
+// at once; 16 at d 64, where 32 spilled at 255 registers.
+__host__ __device__ constexpr int tb_sub_m(int D) { return D == 64 ? 16 : 32; }
+constexpr int TB_STAGES = 2;               // Q/dO tiles in flight
+constexpr int TB_DS_STRIDE = TB_BLOCK_M + 8;
+static_assert(TB_THREADS == 2 * TB_BLOCK_M, "one thread a query row's lse and one its D");
+__host__ __device__ constexpr int tb_stride(int D) { return D + 8; }
+constexpr int tb_smem_bytes(int D) {  // K, V, the Q and dO rings, dSᵀ, the lse and D rings
+  return ((2 * TB_BLOCK_N + 2 * TB_STAGES * TB_BLOCK_M) * tb_stride(D) +
+          TB_BLOCK_N * TB_DS_STRIDE + 2 * TB_STAGES * TB_BLOCK_M) * 4;
+}
+
+// Float offset of (row, col) in a K, V, Q or dO tile.
+template <int D>
+__host__ __device__ constexpr int tb_off(int row, int col) {
+  return row * tb_stride(D) + (((col >> 2) ^ (((row >> 2) & 1) << 1)) << 2) + (col & 3);
+}
+
+// ROWS rows of D floats (row r of the tile is row first + r of the slice)
+// into a tb_off tile; rows at or past N are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_tb(uint32_t tile, const float* base, int64_t stride,
+                                             int first, int N) {
+  constexpr int CHUNKS = ROWS * D / 4;
+  static_assert(CHUNKS % TB_THREADS == 0, "tile shape");
+#pragma unroll
+  for (int i = 0; i < CHUNKS / TB_THREADS; ++i) {
+    const int c = threadIdx.x + i * TB_THREADS;
+    const int r = c / (D / 4), chunk = c % (D / 4);
+    const bool valid = first + r < N;
+    const float* src = base + (valid ? first + r : 0) * stride + chunk * 4;
+    cp_async_16(tile + tb_off<D>(r, chunk * 4) * 4, src, valid);
+  }
+}
+
+__device__ __forceinline__ float ld_volatile_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.volatile.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr));
+  return x;
+}
+
+// c += a·b as 3xTF32: the two small products, then the big one.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+// acc += a·b, the three products summed in a zeroed fragment first.
+__device__ __forceinline__ void mma_3xtf32_add(float (&acc)[4], const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                               const uint32_t (&bl)[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(part, ah, al, bh, bl);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
+template <int R>
+__device__ __forceinline__ void split_frag(const float (&x)[R], uint32_t (&hi)[R],
+                                           uint32_t (&lo)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// Fragment maps (m16n8k8 TF32 as above: A (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4); B (t, g), (t+4, g); C (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)):
+// - Sᵀ and dPᵀ, k = d: k t and t+4 of step kk are d 8kk+2t and 8kk+2t+1, so
+//   each A or B read is one float2 of a row.
+// - dV and dK, k = query: k t and t+4 of step j are queries 8j+2t and 8j+2t+1,
+//   the columns that Sᵀ's C fragment of tile j holds: Pᵀ's A fragment is
+//   (c0, c2, c1, c3) of it, with no shuffle; n = d as in the forward's P·V.
+// - dQ, k = key: k t and t+4 of step kk are keys 8kk+t and 8kk+t+4.
+template <int D>
+__global__ void __launch_bounds__(TB_THREADS, 1)
+attention_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                          int N, int H, Strides qs, Strides ks, Strides vs, Strides dos,
+                          float scale_log2, float scale) {
+  constexpr int KSTEPS = D / 8;                 // k8 steps over d (Sᵀ, dPᵀ)
+  constexpr int SUB_M = tb_sub_m(D);            // queries a sub-step
+  constexpr int SUB_TILES = SUB_M / 8;          // its n8 query tiles
+  constexpr int O_TILES = D / 8;                // n8 tiles over d (dV, dK, dQ)
+  constexpr int W = O_TILES < 4 ? O_TILES : 4;  // d values a lane reads of a row
+  constexpr int KV_FLOATS = TB_BLOCK_N * tb_stride(D);
+  constexpr int QT_FLOATS = TB_BLOCK_M * tb_stride(D);
+  // K's split A fragments stay in registers at d 16 and 32; at d 64 they
+  // would take 64 registers, and K is read again at each step like V. At d
+  // 64 the loops over k steps are not unrolled either: unrolled, ptxas
+  // spilled at 255 registers.
+  constexpr bool KEEP_K = D <= 32;
+  constexpr int UNROLL = D == 64 ? 1 : 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int head = bh % H;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * TB_BLOCK_N;
+  const float* q_base = q + b * qs.b + head * qs.h;
+  const float* k_base = k + b * ks.b + head * ks.h;
+  const float* v_base = v + b * vs.b + head * vs.h;
+  const float* do_base = dout + b * dos.b + head * dos.h;
+  const float* lse_row = lse + static_cast<int64_t>(bh) * N;
+  const float* delta_row = delta + static_cast<int64_t>(bh) * N;
+  const uint32_t sk = smem_u32(smem);
+  const uint32_t sv = sk + KV_FLOATS * 4;
+  const uint32_t sq = sv + KV_FLOATS * 4;
+  const uint32_t sdo = sq + TB_STAGES * QT_FLOATS * 4;
+  const uint32_t sds = sdo + TB_STAGES * QT_FLOATS * 4;
+  float* const stats = reinterpret_cast<float*>(smem + (sds - sk) + TB_BLOCK_N * TB_DS_STRIDE * 4);
+  const int m_tiles = (N + TB_BLOCK_M - 1) / TB_BLOCK_M;
+
+  // Thread i < TB_BLOCK_M carries the lse of query row m0 + i, thread
+  // TB_BLOCK_M + i its D; rows at or past N get lse +inf (P exactly 0), D 0.
+  const int stat_row = threadIdx.x % TB_BLOCK_M;
+  const bool is_lse = threadIdx.x < TB_BLOCK_M;
+  const float* stat_src = is_lse ? lse_row : delta_row;
+  auto row_stat = [&](int m0) {
+    const int r = m0 + stat_row;
+    return r < N ? stat_src[r] : (is_lse ? INFINITY : 0.f);
+  };
+  float* const my_stat = stats + (is_lse ? 0 : TB_STAGES * TB_BLOCK_M) + stat_row;
+
+  load_tile_tb<D, TB_BLOCK_N>(sk, k_base, ks.n, n0, N);
+  load_tile_tb<D, TB_BLOCK_N>(sv, v_base, vs.n, n0, N);
+  load_tile_tb<D, TB_BLOCK_M>(sq, q_base, qs.n, 0, N);
+  load_tile_tb<D, TB_BLOCK_M>(sdo, do_base, dos.n, 0, N);
+  cp_async_commit();
+  my_stat[0] = row_stat(0);
+
+  // An A fragment of K or V rows (this warp's keys) at k step kk, split.
+  const auto key_frag = [&](uint32_t tile, int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    float a0[2], a1[2];
+    load_vec<2>(a0, tile + tb_off<D>(warp * 16 + g, 8 * kk + 2 * t) * 4);
+    load_vec<2>(a1, tile + tb_off<D>(warp * 16 + g + 8, 8 * kk + 2 * t) * 4);
+    const float x[4] = {a0[0], a1[0], a0[1], a1[1]};
+    split_frag(x, hi, lo);
+  };
+  uint32_t kh[KEEP_K ? KSTEPS : 1][4], kl[KEEP_K ? KSTEPS : 1][4];
+  float dk_acc[O_TILES][4], dv_acc[O_TILES][4];
+#pragma unroll
+  for (int tt = 0; tt < O_TILES; ++tt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[tt][e] = dv_acc[tt][e] = 0.f;
+  // Keys at or past N (zero-filled) get P = 0: their dS then is 0 too.
+  const int key_lo = n0 + warp * 16 + g;
+  const bool key_lo_ok = key_lo < N, key_hi_ok = key_lo + 8 < N;
+
+  for (int it = 0; it < m_tiles; ++it) {
+    const int st = it % TB_STAGES;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` and its lse, D are visible; every warp is done with it-1
+    float next_stat = 0.f;
+    if (it + 1 < m_tiles) {
+      const int ns = (it + 1) % TB_STAGES;
+      load_tile_tb<D, TB_BLOCK_M>(sq + ns * QT_FLOATS * 4, q_base, qs.n, (it + 1) * TB_BLOCK_M, N);
+      load_tile_tb<D, TB_BLOCK_M>(sdo + ns * QT_FLOATS * 4, do_base, dos.n, (it + 1) * TB_BLOCK_M, N);
+      next_stat = row_stat((it + 1) * TB_BLOCK_M);
+    }
+    cp_async_commit();
+    if constexpr (KEEP_K) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) key_frag(sk, kk, kh[kk], kl[kk]);
+      }
+    }
+    const uint32_t sq_t = sq + st * QT_FLOATS * 4;
+    const uint32_t sdo_t = sdo + st * QT_FLOATS * 4;
+    const float* lse_t = stats + st * TB_BLOCK_M;
+    const float* delta_t = stats + (TB_STAGES + st) * TB_BLOCK_M;
+
+#pragma unroll 1
+    for (int sub = 0; sub < TB_BLOCK_M / SUB_M; ++sub) {
+      const int q0 = sub * SUB_M;  // the sub-step's first query of the tile
+      float s[SUB_TILES][4], dp[SUB_TILES][4];
+#pragma unroll
+      for (int j = 0; j < SUB_TILES; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: a Q or dO row, d contiguous, is the B
+      // operand as it lies.
+#pragma unroll UNROLL
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t vh[4], vl[4];
+        key_frag(sv, kk, vh, vl);
+        uint32_t kh_s[4], kl_s[4];
+        if constexpr (KEEP_K) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kh_s[e] = kh[KEEP_K ? kk : 0][e], kl_s[e] = kl[KEEP_K ? kk : 0][e];
+        } else {
+          key_frag(sk, kk, kh_s, kl_s);
+        }
+#pragma unroll
+        for (int j = 0; j < SUB_TILES; ++j) {
+          const int off = tb_off<D>(q0 + 8 * j + g, 8 * kk + 2 * t) * 4;
+          float xq[2], xo[2];
+          load_vec<2>(xq, sq_t + off);
+          load_vec<2>(xo, sdo_t + off);
+          uint32_t qh[2], ql[2], oh[2], ol[2];
+          split_frag(xq, qh, ql);
+          split_frag(xo, oh, ol);
+          mma_3xtf32(s[j], kh_s, kl_s, qh, ql);
+          mma_3xtf32(dp[j], vh, vl, oh, ol);
+        }
+      }
+
+      // Pᵀ = exp2(s·c − lse) and dSᵀ = Pᵀ∘(dPᵀ − D)/√d in fp32, rows g and
+      // g+8 (keys) and columns 2t, 2t+1 (queries) of each n8 tile; dSᵀ also
+      // goes to its shared tile for dQ. Both overwrite their accumulators.
+#pragma unroll
+      for (int j = 0; j < SUB_TILES; ++j) {
+        const int col = q0 + 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + col);
+        const float p0 = key_lo_ok ? fast_exp2(fmaf(s[j][0], scale_log2, -l2.x)) : 0.f;
+        const float p1 = key_lo_ok ? fast_exp2(fmaf(s[j][1], scale_log2, -l2.y)) : 0.f;
+        const float p2 = key_hi_ok ? fast_exp2(fmaf(s[j][2], scale_log2, -l2.x)) : 0.f;
+        const float p3 = key_hi_ok ? fast_exp2(fmaf(s[j][3], scale_log2, -l2.y)) : 0.f;
+        dp[j][0] = p0 * (dp[j][0] - d2.x) * scale;
+        dp[j][1] = p1 * (dp[j][1] - d2.y) * scale;
+        dp[j][2] = p2 * (dp[j][2] - d2.x) * scale;
+        dp[j][3] = p3 * (dp[j][3] - d2.y) * scale;
+        s[j][0] = p0, s[j][1] = p1, s[j][2] = p2, s[j][3] = p3;
+        st_shared_f2(sds + ((warp * 16 + g) * TB_DS_STRIDE + col) * 4, dp[j][0], dp[j][1]);
+        st_shared_f2(sds + ((warp * 16 + g + 8) * TB_DS_STRIDE + col) * 4, dp[j][2], dp[j][3]);
+      }
+
+      // dV += Pᵀ·dO and dK += dSᵀ·Q, one k8 step of queries at a time: a
+      // lane reads W neighbouring d values of query rows 8j+2t and 8j+2t+1.
+#pragma unroll
+      for (int j = 0; j < SUB_TILES; ++j) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        const float da[4] = {dp[j][0], dp[j][2], dp[j][1], dp[j][3]};
+        split_frag(pa, ph, pl);
+        split_frag(da, dh, dl);
+        // dO's fragments and dV's products, then Q's and dK's, so that only
+        // one operand's split fragments are live at a time.
+        const auto rows_product = [&](uint32_t tile, const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], float (&acc)[O_TILES][4]) {
+#pragma unroll
+          for (int grp = 0; grp < O_TILES / W; ++grp) {
+            uint32_t bh[W][2], bl[W][2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float x[W];
+              load_vec<W>(x, tile + tb_off<D>(q0 + 8 * j + 2 * t + r, 8 * W * grp + W * g) * 4);
+#pragma unroll
+              for (int w = 0; w < W; ++w) split_tf32(x[w], bh[w][r], bl[w][r]);
+            }
+#pragma unroll
+            for (int w = 0; w < W; ++w) mma_3xtf32_add(acc[grp * W + w], ah, al, bh[w], bl[w]);
+          }
+        };
+        rows_product(sdo_t, ph, pl, dv_acc);
+        rows_product(sq_t, dh, dl, dk_acc);
+      }
+    }
+    __syncthreads();  // every warp's dSᵀ rows are in shared memory
+
+    // dQ rows 16w..16w+15 of this tile += dS·K over the block's keys, each
+    // k8 step of keys in a zeroed fragment; then float2 atomics.
+    float dq_acc[O_TILES][4];
+#pragma unroll
+    for (int tt = 0; tt < O_TILES; ++tt) dq_acc[tt][0] = dq_acc[tt][1] = dq_acc[tt][2] = dq_acc[tt][3] = 0.f;
+#pragma unroll UNROLL
+    for (int kk = 0; kk < TB_BLOCK_N / 8; ++kk) {
+      const uint32_t row_a = sds + ((8 * kk + t) * TB_DS_STRIDE + warp * 16 + g) * 4;
+      const float xa[4] = {ld_volatile_f32(row_a), ld_volatile_f32(row_a + 8 * 4),
+                           ld_volatile_f32(row_a + 4 * TB_DS_STRIDE * 4),
+                           ld_volatile_f32(row_a + (4 * TB_DS_STRIDE + 8) * 4)};
+      uint32_t ah[4], al[4];
+      split_frag(xa, ah, al);
+#pragma unroll
+      for (int grp = 0; grp < O_TILES / W; ++grp) {
+        uint32_t kbh[W][2], kbl[W][2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x[W];
+          load_vec<W>(x, sk + tb_off<D>(8 * kk + t + 4 * r, 8 * W * grp + W * g) * 4);
+#pragma unroll
+          for (int w = 0; w < W; ++w) split_tf32(x[w], kbh[w][r], kbl[w][r]);
+        }
+#pragma unroll
+        for (int w = 0; w < W; ++w) mma_3xtf32_add(dq_acc[grp * W + w], ah, al, kbh[w], kbl[w]);
+      }
+    }
+    // A lane holds d 8W·grp + 2W·t .. +2W−1 of query rows g and g+8.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = it * TB_BLOCK_M + warp * 16 + g + 8 * half;
+      if (row < N) {
+        float* dst = dq + ((static_cast<int64_t>(b) * N + row) * H + head) * D;
+#pragma unroll
+        for (int grp = 0; grp < O_TILES / W; ++grp)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int w = 0; w < W; w += 2)
+              atomicAdd(reinterpret_cast<float2*>(dst + 8 * W * grp + W * (2 * t + c) + w),
+                        make_float2(dq_acc[grp * W + w][2 * half + c],
+                                    dq_acc[grp * W + w + 1][2 * half + c]));
+      }
+    }
+    if (it + 1 < m_tiles) my_stat[((it + 1) % TB_STAGES) * TB_BLOCK_M] = next_stat;
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none behind
+
+  // Epilogue: dV and dK straight from the fragments, rows (keys) < N.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = n0 + warp * 16 + g + 8 * half;
+    if (key >= N) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * N + key) * H + head) * D;
+#pragma unroll
+    for (int grp = 0; grp < O_TILES / W; ++grp)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float xv[W], xk[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          xv[w] = dv_acc[grp * W + w][2 * half + c];
+          xk[w] = dk_acc[grp * W + w][2 * half + c];
+        }
+        store_vec<W>(dv + at + 8 * W * grp + W * (2 * t + c), xv);
+        store_vec<W>(dk + at + 8 * W * grp + W * (2 * t + c), xk);
+      }
   }
 }
 
@@ -2074,14 +2479,19 @@ cudaError_t sm_count(int& sms) {
 }
 
 template <int D, int MT>
-void launch_tf32(const void* q, const void* k, const void* v, void* o, int B,
+void launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                  int N, int H, Strides qs, Strides ks, Strides vs, float scale_log2,
                  cudaStream_t stream) {
   constexpr int block_m = 16 * MT * TF32_WARPS;
   const dim3 grid((N + block_m - 1) / block_m, B * H);
-  attention_fwd_tf32_kernel<D, MT><<<grid, TF32_THREADS, tf32_smem_bytes(D), stream>>>(
+  const auto kernel = lse ? attention_fwd_tf32_kernel<D, MT, true>
+                          : attention_fwd_tf32_kernel<D, MT, false>;
+  if (tf32_smem_bytes(D) > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         tf32_smem_bytes(D));
+  kernel<<<grid, TF32_THREADS, tf32_smem_bytes(D), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), N, H, qs, ks, vs,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, N, H, qs, ks, vs,
       scale_log2);
 }
 
@@ -2204,8 +2614,8 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-// Launches the forward of type T; `lse` (16-bit types only) non-null takes
-// the instance that also writes the log-sum-exp.
+// Launches the forward of type T; `lse` non-null takes the instance that
+// also writes the log-sum-exp.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int N, int H, Strides qs, Strides ks,
@@ -2222,9 +2632,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     }
     constexpr int wide_m = 16 * MT * TF32_WARPS;
     if (MT > 1 && static_cast<int64_t>(B) * H * ((N + wide_m - 1) / wide_m) >= sms)
-      launch_tf32<D, MT>(q, k, v, o, B, N, H, qs, ks, vs, scale_log2, stream);
+      launch_tf32<D, MT>(q, k, v, o, lse, B, N, H, qs, ks, vs, scale_log2, stream);
     else
-      launch_tf32<D, 1>(q, k, v, o, B, N, H, qs, ks, vs, scale_log2, stream);
+      launch_tf32<D, 1>(q, k, v, o, lse, B, N, H, qs, ks, vs, scale_log2, stream);
   } else {
     if constexpr (wgf_built(D))
       if (!mma_fwd(N, D))
@@ -2274,8 +2684,9 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-// The backward of type T (bf16, fp16): the pre-pass, the main kernel, the
-// dQ conversion, on one stream; the error of the first launch that fails.
+// The backward of type T: the pre-pass, the main kernel and, for bf16 and
+// fp16, the dQ conversion (fp32 accumulates into dq itself, which is then
+// dq_acc), on one stream; the error of the first launch that fails.
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, float* dq_acc,
@@ -2283,7 +2694,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        Strides ks, Strides vs, Strides os, Strides dos,
                        cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(B) * N * H;
-  const int64_t prep_threads = rows * (D / 8);
+  const int64_t prep_threads = rows * (D * sizeof(T) / 16);
   attention_bwd_prep_kernel<T, D>
       <<<static_cast<unsigned>((prep_threads + BWD_PREP_THREADS - 1) / BWD_PREP_THREADS),
          BWD_PREP_THREADS, 0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
@@ -2292,29 +2703,40 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return err;
 
   const float scale = 1.f / sqrtf(static_cast<float>(D));
-  constexpr bool FP16 = std::is_same_v<T, __half>;
-  if (!mma_bwd(N, D, FP16)) {
-    if constexpr (wgb_built(D, FP16))
-      err = launch_bwd_wgmma<T, D>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, N, H, qs, ks, vs,
-                                   dos, 1.4426950408889634f * scale, scale, stream);
-    if (err != cudaSuccess) return err;
+  if constexpr (std::is_same_v<T, float>) {  // dq_acc is dq: no conversion
+    constexpr int smem = tb_smem_bytes(D);
+    if ((err = allow_smem(attention_bwd_tf32_kernel<D>, smem))) return err;
+    const dim3 grid((N + TB_BLOCK_N - 1) / TB_BLOCK_N, B * H);
+    attention_bwd_tf32_kernel<D><<<grid, TB_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), lse, delta, dq_acc, static_cast<float*>(dk),
+        static_cast<float*>(dv), N, H, qs, ks, vs, dos, 1.4426950408889634f * scale, scale);
+    return cudaGetLastError();
   } else {
-    constexpr int smem = bwd_smem_bytes(D);
-    if ((err = allow_smem(attention_bwd_mma_kernel<T, D>, smem))) return err;
-    const dim3 grid((N + BWD_BLOCK_N - 1) / BWD_BLOCK_N, B * H);
-    attention_bwd_mma_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
-        static_cast<T*>(dv), N, H, qs, ks, vs, dos, 1.4426950408889634f * scale, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+    constexpr bool FP16 = std::is_same_v<T, __half>;
+    if (!mma_bwd(N, D, FP16)) {
+      if constexpr (wgb_built(D, FP16))
+        err = launch_bwd_wgmma<T, D>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, N, H, qs, ks, vs,
+                                     dos, 1.4426950408889634f * scale, scale, stream);
+      if (err != cudaSuccess) return err;
+    } else {
+      constexpr int smem = bwd_smem_bytes(D);
+      if ((err = allow_smem(attention_bwd_mma_kernel<T, D>, smem))) return err;
+      const dim3 grid((N + BWD_BLOCK_N - 1) / BWD_BLOCK_N, B * H);
+      attention_bwd_mma_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const T*>(dout), lse, delta, dq_acc, static_cast<T*>(dk),
+          static_cast<T*>(dv), N, H, qs, ks, vs, dos, 1.4426950408889634f * scale, scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
 
-  const int64_t chunks = rows * (D / 8);
-  attention_bwd_dq_kernel<T>
-      <<<static_cast<unsigned>((chunks + BWD_PREP_THREADS - 1) / BWD_PREP_THREADS),
-         BWD_PREP_THREADS, 0, stream>>>(dq_acc, static_cast<T*>(dq), chunks);
-  return cudaGetLastError();
+    const int64_t chunks = rows * (D / 8);
+    attention_bwd_dq_kernel<T>
+        <<<static_cast<unsigned>((chunks + BWD_PREP_THREADS - 1) / BWD_PREP_THREADS),
+           BWD_PREP_THREADS, 0, stream>>>(dq_acc, static_cast<T*>(dq), chunks);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -2381,9 +2803,9 @@ extern "C" int hd_attention_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The bf16/fp16 forward that also writes the fp32 log-sum-exp of each query
-// row, in the kernel's exp2 domain, to the contiguous (B, h, N) `lse`.
-// dtype: 1 float16, 2 bfloat16; otherwise as hd_attention_fwd.
+// The forward that also writes the fp32 log-sum-exp of each query row, in
+// the kernel's exp2 domain, to the contiguous (B, h, N) `lse`; as
+// hd_attention_fwd otherwise.
 extern "C" int hd_attention_fwd_lse(const void* q, const void* k, const void* v,
                                     void* o, float* lse, int B, int N, int H, int D,
                                     int dtype, int64_t q_sb, int64_t q_sn, int64_t q_sh,
@@ -2393,23 +2815,26 @@ extern "C" int hd_attention_fwd_lse(const void* q, const void* k, const void* v,
   if (B <= 0 || N <= 0 || H <= 0 || B * H > 65535 || lse == nullptr)
     return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
-  if (!(aligned_16(q, B, N, H, qs, 2) && aligned_16(k, B, N, H, ks, 2) &&
-        aligned_16(v, B, N, H, vs, 2) && aligned_16(o)))
+  const int eb = dtype == 0 ? 4 : 2;
+  if (!(aligned_16(q, B, N, H, qs, eb) && aligned_16(k, B, N, H, ks, eb) &&
+        aligned_16(v, B, N, H, vs, eb) && aligned_16(o)))
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+    case 0: return dispatch_d<float>(D, q, k, v, o, lse, B, N, H, qs, ks, vs, s);
     case 1: return dispatch_d<__half>(D, q, k, v, o, lse, B, N, H, qs, ks, vs, s);
     case 2: return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, N, H, qs, ks, vs, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The bf16/fp16 backward: dq, dk, dv (contiguous (B, N, h, d), the input
-// type) of out = softmax(q·kᵀ/√d)·v for the incoming gradient `dout`, from
-// the forward's inputs, its output `o` and its `lse` (hd_attention_fwd_lse).
-// `delta` (fp32, B·h·N) and `dq_acc` (fp32, B·N·h·d) are the caller's
-// scratch; the pre-pass fills both. q, k, v, o and dout are strided (B, N,
-// h, d) views as hd_attention_fwd takes them. dtype: 1 float16, 2 bfloat16.
+// The backward: dq, dk, dv (contiguous (B, N, h, d), the input type) of
+// out = softmax(q·kᵀ/√d)·v for the incoming gradient `dout`, from the
+// forward's inputs, its output `o` and its `lse` (hd_attention_fwd_lse).
+// `delta` (fp32, B·h·N) and, for bf16 and fp16, `dq_acc` (fp32, B·N·h·d) are
+// the caller's scratch; the pre-pass fills both (fp32 sums into dq, and
+// dq_acc is not read). q, k, v, o and dout are strided (B, N, h, d) views
+// as hd_attention_fwd takes them. dtype as there.
 extern "C" int hd_attention_bwd(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout, const float* lse,
                                 float* delta, float* dq_acc, void* dq, void* dk, void* dv,
@@ -2423,13 +2848,18 @@ extern "C" int hd_attention_bwd(const void* q, const void* k, const void* v,
   if (B <= 0 || N <= 0 || H <= 0 || B * H > 65535) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
       os{o_sb, o_sn, o_sh}, dos{do_sb, do_sn, do_sh};
-  if (!(aligned_16(q, B, N, H, qs, 2) && aligned_16(k, B, N, H, ks, 2) &&
-        aligned_16(v, B, N, H, vs, 2) && aligned_16(o, B, N, H, os, 2) &&
-        aligned_16(dout, B, N, H, dos, 2) && aligned_16(lse) && aligned_16(delta) &&
+  const int eb = dtype == 0 ? 4 : 2;
+  if (dtype == 0) dq_acc = static_cast<float*>(dq);
+  if (!(aligned_16(q, B, N, H, qs, eb) && aligned_16(k, B, N, H, ks, eb) &&
+        aligned_16(v, B, N, H, vs, eb) && aligned_16(o, B, N, H, os, eb) &&
+        aligned_16(dout, B, N, H, dos, eb) && aligned_16(lse) && aligned_16(delta) &&
         aligned_16(dq_acc) && aligned_16(dq) && aligned_16(dk) && aligned_16(dv)))
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+    case 0:
+      return dispatch_bwd<float>(D, q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, B, N,
+                                 H, qs, ks, vs, os, dos, s);
     case 1:
       return dispatch_bwd<__half>(D, q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, B,
                                   N, H, qs, ks, vs, os, dos, s);
@@ -2438,14 +2868,4 @@ extern "C" int hd_attention_bwd(const void* q, const void* k, const void* v,
                                          dv, B, N, H, qs, ks, vs, os, dos, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// The name of the kernel that hd_attention_fwd (backward 0) or
-// hd_attention_bwd (backward 1) launches for this dtype (as there), N and d,
-// as mma_fwd and mma_bwd choose.
-extern "C" const char* hd_attention_route(int backward, int dtype, int N, int D) {
-  if (dtype == 0) return backward ? "" : "attention_fwd_tf32_kernel";
-  if (backward)
-    return mma_bwd(N, D, dtype == 1) ? "attention_bwd_mma_kernel" : "attention_bwd_wgmma_kernel";
-  return mma_fwd(N, D) ? "attention_fwd_mma_kernel" : "attention_fwd_wgmma_kernel";
 }

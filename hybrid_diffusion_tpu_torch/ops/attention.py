@@ -11,30 +11,27 @@ Counterpart of `hybrid_diffusion_tpu/ops/attention.py`:
     the call raises. Both kernels run on the tensor cores: bf16 and fp16
     take `attention_fwd` (16-bit products: Hopper's wgmma fed by TMA at d 32
     from N 257 and at d 64, mma.sync elsewhere, as the C dispatch chooses;
-    `kernel_route` names the kernel), fp32 takes `attention_fwd_fp32` (each product as
-    three TF32 products, fp32-accurate). There is no fallback from the card
-    to the plain version or from one kernel to the other.
+    `kernel_route` names the kernel), fp32 takes `attention_fwd_fp32` (each
+    product as three TF32 products, fp32-accurate, on mma.sync). There is
+    no fallback from the card to the plain version or from one kernel to
+    the other.
   - `attention_fwd`, the custom op `hdt::attention_fwd` (torch.library):
     its CUDA implementation launches the kernel, its CPU implementation is
     the plain version, and its fake implementation gives the output's
     shape, so that `torch.export` traces through the op (it cannot trace
     the ctypes call) and an exported program launches the same kernel.
     Importing this module (or the package) registers it.
-  - `KernelBackwardAttention`: reverse mode of bf16 and fp16 CUDA tensors
-    that require grad, the counterpart of the JAX package's
-    `_pallas_attention_diff`. Its forward is the kernel that also writes
-    each query row's log-sum-exp (`attention_forward_lse`), its backward a
-    hand-written kernel (`attention_backward`, `attention_bwd` in
-    `csrc/attention.cu`; wgmma and TMA at d 32 from N 257, mma.sync
-    elsewhere),
-    which computes what the JAX backward `_pallas_attention_bwd` (the vjp
-    of `_xla_attention`) does. Their plain twins,
+  - `KernelBackwardAttention`: reverse mode of CUDA tensors that require
+    grad, the counterpart of the JAX package's `_pallas_attention_diff`.
+    Its forward is the kernel that also writes each query row's
+    log-sum-exp (`attention_forward_lse`), its backward a hand-written
+    kernel (`attention_backward`, `hd_attention_bwd` in
+    `csrc/attention.cu`: bf16 on wgmma and TMA at d 32 from N 257, bf16
+    and fp16 on mma.sync elsewhere, fp32 as 3xTF32 on mma.sync), which
+    computes what the JAX backward `_pallas_attention_bwd` (the vjp of
+    `_xla_attention`) does. Their plain twins,
     `attention_forward_lse_reference` and `attention_backward_reference`,
     take CPU tensors.
-  - `RecomputedBackwardAttention`: reverse mode of fp32 CUDA tensors: the
-    forward is the fp32 kernel, the backward differentiates
-    `attention_reference` at the saved q, k, v (there is no fp32 backward
-    kernel).
 
 Tensors are (B, N, heads, head_dim), as in the JAX package.
 """
@@ -50,20 +47,27 @@ import torch
 from ..utils import cuda_build
 
 SOURCE = "attention.cu"
+ROUTE_HEADER = "attention_route.h"  # the C dispatch's routes, plain C++
 HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 KERNEL_BY_DTYPE = {torch.bfloat16: "attention_fwd",
                    torch.float16: "attention_fwd",
                    torch.float32: "attention_fwd_fp32"}
-# The backward kernel's name, and the dtypes it takes.
+# The backward kernels' names (the 16-bit one's first), and the dtypes they
+# take.
 BACKWARD_KERNEL = "attention_bwd"
-BACKWARD_DTYPES = (torch.bfloat16, torch.float16)
+BACKWARD_KERNEL_BY_DTYPE = {torch.bfloat16: BACKWARD_KERNEL,
+                            torch.float16: BACKWARD_KERNEL,
+                            torch.float32: "attention_bwd_fp32"}
+BACKWARD_DTYPES = tuple(BACKWARD_KERNEL_BY_DTYPE)
 
 # Launches of the CUDA kernels in this process, one per launch and nowhere
-# else: in all, and by kernel. A backward counts once, though it runs three
-# kernels (a pre-pass, the main kernel and dQ's conversion).
+# else: in all, and by kernel. A backward counts once, though it runs two or
+# three kernels (a pre-pass, the main kernel and, in bf16 and fp16, dQ's
+# conversion).
 launch_count = 0
-launch_counts = dict.fromkeys([*KERNEL_BY_DTYPE.values(), BACKWARD_KERNEL], 0)
+launch_counts = dict.fromkeys([*KERNEL_BY_DTYPE.values(),
+                               *BACKWARD_KERNEL_BY_DTYPE.values()], 0)
 _library: cuda_build.BuiltLibrary | None = None
 
 
@@ -136,9 +140,13 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
 # errs by at most 6.3e-3 (bf16), 3.7e-4 (fp16) and 2.8e-2 (fp16, mask trap)
 # at the card checks' shapes cut to B·h = 2: P, dP and dS are rounded to the
 # input type, and D is rowsum(dO∘O) of the rounded output. Each tolerance is
-# 4.7, 4.7 and 4.5 times that error.
+# 4.7, 4.7 and 4.5 times that error. fp32 (3xTF32, nothing rounded to 16
+# bits; tests/test_torch_attention_bwd_tf32.py): the emulation errs by at
+# most 4.05e-6 (N 1000, d 64), sums of up to N products in fp32 against the
+# plain autograd's own fp32 sums; 2e-5 is 4.9 times that. dQ's atomics
+# reorder at most N/64 fp32 additions of each value.
 BWD_RTOL = {("bfloat16", "randn"): 3e-2, ("float16", "randn"): 1.75e-3,
-            ("float16", "mask trap"): 0.125}
+            ("float16", "mask trap"): 0.125, ("float32", "randn"): 2e-5}
 
 
 # One H100 SXM's peaks (NVIDIA's data sheet, dense): FLOP/s of the products
@@ -209,36 +217,45 @@ def load_kernel() -> cuda_build.BuiltLibrary:
 # The tensor-core kernels, mangled: attention_fwd_wgmma_kernel<T, D, LSE>
 # and attention_bwd_wgmma_kernel<T, D> (bf16, fp16 on wgmma), their mma.sync
 # counterparts attention_fwd_mma_kernel<T, D, LSE> and
-# attention_bwd_mma_kernel<T, D>, and attention_fwd_tf32_kernel<D, M16 tiles
-# a warp> (fp32). The backward's
+# attention_bwd_mma_kernel<T, D>; fp32: attention_fwd_tf32_kernel<D, M16
+# tiles a warp, LSE> and attention_bwd_tf32_kernel<D>. The backward's
 # pre-pass and dQ conversion run no product and are not matched.
 _SYMBOL = re.compile(r"(attention_(?:fwd|bwd)_(?:mma|wgmma)_kernel)"
                      r"I(13__nv_bfloat16|6__half)Li(\d+)E(?:Lb([01])E)?"
-                     r"|(attention_fwd_tf32_kernel)ILi(\d+)ELi(\d+)E")
+                     r"|(attention_fwd_tf32_kernel)ILi(\d+)ELi(\d+)ELb([01])E"
+                     r"|(attention_bwd_tf32_kernel)ILi(\d+)E")
 _MANGLED_DTYPES = {"13__nv_bfloat16": torch.bfloat16, "6__half": torch.float16}
 
 
 def kernel_instance(symbol: str) -> tuple[str, torch.dtype, int] | None:
     """(kernel, dtype, head_dim) of a mangled tensor-core kernel symbol of
-    this library, or None for another symbol. The forward that writes the
-    log-sum-exp is `attention_fwd_mma_kernel/lse`; the fp32 kernel's name
-    carries its m16 tiles a warp: `attention_fwd_tf32_kernel/m2`."""
+    this library, or None for another symbol. A forward that writes the
+    log-sum-exp ends in `/lse` (`attention_fwd_mma_kernel/lse`); the fp32
+    forward's name carries its m16 tiles a warp:
+    `attention_fwd_tf32_kernel/m2`, `attention_fwd_tf32_kernel/m1/lse`."""
     m = _SYMBOL.search(symbol)
     if m is None:
         return None
     if m.group(1):
         name = m.group(1) + ("/lse" if m.group(4) == "1" else "")
         return name, _MANGLED_DTYPES[m.group(2)], int(m.group(3))
-    return f"{m.group(5)}/m{m.group(7)}", torch.float32, int(m.group(6))
+    if m.group(5):
+        name = f"{m.group(5)}/m{m.group(7)}" + ("/lse" if m.group(8) == "1"
+                                                 else "")
+        return name, torch.float32, int(m.group(6))
+    return m.group(9), torch.float32, int(m.group(10))
 
 
 def kernel_route(dtype: torch.dtype, n: int, head_dim: int,
-                 backward: bool = False) -> str:
+                 backward: bool = False, lib: ctypes.CDLL | None = None) -> str:
     """The kernel that the library launches for a forward (or backward) of
     this dtype, sequence length and head_dim, as its C dispatch chooses
-    (`hd_attention_route`): a wgmma kernel or an mma.sync one. Builds the
-    library at first use (on the card's machine)."""
-    lib = load_kernel().lib
+    (`hd_attention_route`, csrc/attention_route.h): a wgmma kernel or an
+    mma.sync one. Asks `lib`, by default the library, built at first use (on
+    the card's machine)."""
+    lib = lib or load_kernel().lib
+    lib.hd_attention_route.argtypes = [ctypes.c_int] * 4
+    lib.hd_attention_route.restype = ctypes.c_char_p
     return lib.hd_attention_route(int(backward), _DTYPE_CODES[dtype], n,
                                   head_dim).decode()
 
@@ -345,9 +362,6 @@ def call_library_lse(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     library as `bind` set it up) on CUDA tensors it checks; counts
     nothing."""
     _check_cuda_inputs(q, k, v)
-    if q.dtype not in BACKWARD_DTYPES:
-        raise TypeError(f"attention forward with lse takes {BACKWARD_DTYPES}, "
-                        f"got {q.dtype}")
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
@@ -376,7 +390,7 @@ def _require_cuda(q: torch.Tensor) -> None:
 
 def attention_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of bf16/fp16 CUDA (B, N, h, d) q, k, v: the forward
+    """(out, lse) of CUDA (B, N, h, d) q, k, v: the forward
     kernel's instance that also writes the log-sum-exp (checked, counted as
     the forward; it raises where the kernel does not take the inputs)."""
     global launch_count
@@ -396,9 +410,6 @@ def call_library_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     library as `bind` set it up) on CUDA tensors it checks; counts
     nothing."""
     _check_cuda_inputs(q, k, v)
-    if q.dtype not in BACKWARD_DTYPES:
-        raise TypeError(f"attention backward kernel takes {BACKWARD_DTYPES}, "
-                        f"got {q.dtype}")
     B, N, H, D = q.shape
     for name, t, dtype, shape in (("out", out, q.dtype, q.shape),
                                   ("dout", dout, q.dtype, q.shape),
@@ -416,7 +427,9 @@ def call_library_bwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((B, N, H, D), dtype=torch.float32, device=q.device)
+    # fp32 sums dQ into dq itself; bf16 and fp16 into an fp32 scratch.
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
+        (B, N, H, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hd_attention_bwd(
@@ -445,7 +458,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grads = call_library_bwd(load_kernel().lib, q, k, v, out, lse, dout)
     if grads[0].numel():
         launch_count += 1
-        launch_counts[BACKWARD_KERNEL] += 1
+        launch_counts[BACKWARD_KERNEL_BY_DTYPE[q.dtype]] += 1
     return grads
 
 
@@ -472,40 +485,15 @@ class KernelBackwardAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-class RecomputedBackwardAttention(torch.autograd.Function):
-    """`forward_fn(q, k, v)` forward; the backward recomputes through
-    `attention_reference` at the saved inputs and returns its grads (the
-    design of the JAX package's `_pallas_attention_bwd`). It serves fp32
-    CUDA tensors only: bf16 and fp16 take `KernelBackwardAttention`.
-
-    The grads are contiguous (B, N, h, d) tensors: autograd carries them back
-    through the strided views of the packed projection they came from.
-    """
-
-    @staticmethod
-    def forward(ctx, q, k, v, forward_fn):
-        ctx.save_for_backward(q, k, v)
-        return forward_fn(q, k, v)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = attention_reference(q, k, v)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
-        return dq, dk, dv, None
-
-
 def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """Scaled-dot-product attention over (B, N, heads, head_dim) tensors.
 
     Without grad, the op `attention_fwd`: the CUDA kernel on the card, the
     plain version on the CPU. With grad, CPU tensors take autograd of the
-    plain version; bf16 and fp16 CUDA tensors `KernelBackwardAttention`
-    with the forward and backward kernels, fp32 ones
-    `RecomputedBackwardAttention` with the fp32 forward kernel. There is no
-    fallback: a kernel that cannot take the inputs raises.
+    plain version, CUDA tensors `KernelBackwardAttention` with the forward
+    and backward kernels. There is no fallback: a kernel that cannot take
+    the inputs raises.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: unsupported device {q.device}")
@@ -513,8 +501,6 @@ def fused_spatial_attention(q: torch.Tensor, k: torch.Tensor,
                                     or v.requires_grad):
         if q.device.type == "cpu":
             return attention_reference(q, k, v)
-        if q.dtype in BACKWARD_DTYPES:
-            return KernelBackwardAttention.apply(
-                q, k, v, attention_forward_lse, attention_backward)
-        return RecomputedBackwardAttention.apply(q, k, v, attention_fwd)
+        return KernelBackwardAttention.apply(
+            q, k, v, attention_forward_lse, attention_backward)
     return attention_fwd(q, k, v)

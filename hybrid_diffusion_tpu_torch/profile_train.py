@@ -1,12 +1,14 @@
 """Where one flagship training step spends its device time.
 
-    python -m hybrid_diffusion_tpu_torch.profile_train [--steps N]
+    python -m hybrid_diffusion_tpu_torch.profile_train [--steps N] [--fp32]
 
 Builds the train phase of chip_smoke.py on the card: the flagship model
 (256², ch 128, mult (1,2,2,2), 2 res blocks, bf16) warm-started from the r5
 npz, batch 16, the default composite loss with the DINO term (random-init
 ViT-S at 252²), dropout 0.15, domain routing, EMA 0.99875, lr 1e-5; numpy
-batches alternating blue- and red-heavy. Times N warm steps with the host
+batches alternating blue- and red-heavy. With --fp32 the same step in the
+full-precision mode (bf16=False, DINO in fp32 too), with TF32 off for
+matmuls and cuDNN as in chip_smoke.py. Times N warm steps with the host
 clock (each ends in a synchronize), then traces one more with
 torch.profiler and prints: the device time by kernel class, the device's
 busy and idle share of the traced step, the time of each of the step's
@@ -43,7 +45,10 @@ BATCH = 16
 FINE_TUNE = dict(dropout=0.15, ema_decay=0.99875, lr=1e-5, batch_size=BATCH,
                  init_from_npz=str(FLAGSHIP_NPZ))
 RANGES = ("train/forward", "train/loss", "train/backward", "train/update")
+# The attention's autograd node (KernelBackwardAttention's); matched by its
+# suffix, which any backward Function of the ops module shares.
 ATTENTION_BACKWARD = "KernelBackwardAttentionBackward"
+ATTENTION_BACKWARD_SUFFIX = "BackwardAttentionBackward"
 
 
 def train_kernel_class(name: str) -> str:
@@ -80,9 +85,15 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=4,
                         help="warm steps timed with the host clock")
+    parser.add_argument("--fp32", action="store_true",
+                        help="train in fp32 (bf16=False), TF32 off")
     args = parser.parse_args()
+    dtype = "fp32" if args.fp32 else "bf16"
+    if args.fp32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
-    cfg = flagship_config(**FINE_TUNE)
+    cfg = flagship_config(**FINE_TUNE, bf16=not args.fp32)
     model = init_params(cfg, "cuda")
     state = create_train_state(cfg, model, steps_per_epoch=100)
     dino = make_dino(cfg, "cuda")
@@ -124,7 +135,7 @@ def main() -> None:
                 spans[ev.key] = ev.self_device_time_total
             else:
                 ranges[ev.key] = ev.device_time_total
-        elif ATTENTION_BACKWARD in ev.key and not on_card:
+        elif ev.key.endswith(ATTENTION_BACKWARD_SUFFIX) and not on_card:
             ranges[ATTENTION_BACKWARD] = max(ranges[ATTENTION_BACKWARD],
                                              ev.device_time_total)
         elif on_card and ev.self_device_time_total > 0:   # kernels only
@@ -140,9 +151,9 @@ def main() -> None:
     attention_bwd_us = by_class.get("attention backward (CUDA kernel)", 0.0)
 
     # The DINO term alone at the step's shapes: forward + backward wrt the
-    # prediction, bf16 ViT-S at 252², batch 16; its kernels' device time in
-    # one traced call (utils/timing.device_ms cannot queue it ahead of the
-    # card: the host never gets far enough ahead).
+    # prediction, ViT-S at 252² (bf16 unless --fp32), batch 16; its
+    # kernels' device time in one traced call (utils/timing.device_ms cannot
+    # queue it ahead of the card: the host never gets far enough ahead).
     x0 = torch.rand(BATCH, 256, 256, 3, device="cuda") * 2 - 1
     gt = torch.rand(BATCH, 256, 256, 3, device="cuda") * 2 - 1
     x0.requires_grad_()
@@ -156,7 +167,7 @@ def main() -> None:
                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
     busy = total_us / 1e3 / (traced_wall * 1e3)
-    print(f"card: {smi}; flagship train step, batch {BATCH}, bf16")
+    print(f"card: {smi}; flagship train step, batch {BATCH}, {dtype}")
     print(f"untraced step: median {statistics.median(walls) * 1e3:.2f} ms over "
           f"{len(walls)} ({BATCH / statistics.median(walls):.2f} img/s); "
           f"peak memory {peak_gib:.2f} GiB")
@@ -181,7 +192,7 @@ def main() -> None:
     for name, us in by_kernel.most_common(15):
         print(f"  {us / 1e3:9.3f} ms  x{counts[name]:<5d} {name[:110]}")
     print(json.dumps({
-        "card": smi, "batch": BATCH, "dtype": "bf16",
+        "card": smi, "batch": BATCH, "dtype": dtype,
         "step_ms_median": statistics.median(walls) * 1e3,
         "step_ms": [w * 1e3 for w in walls],
         "peak_gib": peak_gib,

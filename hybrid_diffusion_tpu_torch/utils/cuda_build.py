@@ -30,8 +30,14 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+# ptxas's --split-compile=0 assembles the kernels on every core: it cut
+# chip_smoke.py's nvcc time on the H100 machine by about a third (PERF.md).
+# nvcc's own --split-compile (NVVM's passes) is left out: it changed one
+# kernel's code (the 16-bit mma.sync backward at d 16: 107 registers, not
+# 125, and 7% slower).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-Xptxas",
+              "--split-compile=0")
 NVCC_TIMEOUT_S = 300
 
 
@@ -58,10 +64,12 @@ def find_nvcc() -> str:
 
 
 def build(source_name: str | Path) -> BuiltLibrary:
-    """Compile `csrc/<source_name>` (if its hash changed) and load it; an
-    absolute path names a source elsewhere."""
+    """Compile `csrc/<source_name>` (if its hash, or that of a header beside
+    it, changed) and load it; an absolute path names a source elsewhere."""
     src = CSRC_DIR / source_name
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.h")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     stem = f"{src.stem}_{digest.hexdigest()[:16]}"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so_path = BUILD_DIR / f"lib{stem}.so"

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.ops.attention import _pallas_attention, _xla_attention
 from hybrid_diffusion_tpu_torch.ops import attention as port_attention
 from hybrid_diffusion_tpu_torch.ops.attention import (

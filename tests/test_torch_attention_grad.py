@@ -1,13 +1,14 @@
-"""The attention's reverse mode: `RecomputedBackwardAttention` against
+"""The attention's reverse mode: `KernelBackwardAttention` against
 `jax.vjp(_xla_attention)`, the backward of the JAX package's
 `_pallas_attention_diff`, on the CPU.
 
-The Function takes its forward as an argument; here that is the plain
-version (on the card it is the CUDA kernel). q, k and v are strided views
-of one packed (B, N, 3, h, d) projection, as the model hands them over, and
-the gradient arrives on the packed tensor. fp32: rel ≤ 1e-5 (the same fp32
-arithmetic in another order); bf16 against JAX's bf16 vjp: rel ≤ 2e-2 (the
-two round P and the products at different places).
+The Function takes its forward and backward as arguments; here those are
+the kernels' plain twins (on the card they are the CUDA kernels, in fp32
+as in bf16 and fp16: the recomputed fp32 backward is gone). q, k and v are
+strided views of one packed (B, N, 3, h, d) projection, as the model hands
+them over, and the gradient arrives on the packed tensor. fp32: rel ≤ 1e-5
+(the same fp32 arithmetic in another order); bf16 against JAX's bf16 vjp:
+rel ≤ 2e-2 (the two round P and the products at different places).
 """
 
 import jax
@@ -20,7 +21,9 @@ from _torch_parity import one_torch_thread, rel_err  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.ops.attention import _xla_attention
 from hybrid_diffusion_tpu_torch.ops import attention as port_attention
 from hybrid_diffusion_tpu_torch.ops.attention import (
-    RecomputedBackwardAttention,
+    KernelBackwardAttention,
+    attention_backward_reference,
+    attention_forward_lse_reference,
     attention_reference,
     fused_spatial_attention,
 )
@@ -51,13 +54,14 @@ def test_function_backward_matches_jax_vjp(shape, dtype, tol):
 
     def forward(q, k, v):
         calls.append(q.shape)
-        return attention_reference(q, k, v)
+        return attention_forward_lse_reference(q, k, v)
 
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
-    out = RecomputedBackwardAttention.apply(q, k, v, forward)
+    out = KernelBackwardAttention.apply(q, k, v, forward,
+                                        attention_backward_reference)
     out.backward(torch.from_numpy(g_np).to(dtype))
-    assert len(calls) == 1                # the backward recomputes the plain way
+    assert len(calls) == 1                # one forward; the backward reuses its lse
     assert qkv.grad.shape == qkv.shape
     jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     ref = jax_grads(qkv_np, g_np, jdtype)
@@ -65,17 +69,21 @@ def test_function_backward_matches_jax_vjp(shape, dtype, tol):
 
 
 def test_function_equals_plain_autograd():
-    """The Function's grads are the plain version's autograd grads."""
+    """The Function's fp32 grads with the twins are the plain version's
+    autograd grads but for fp32 rounding: the twin's FA2 algebra (D =
+    rowsum(dO∘O) for rowsum(P∘dP)) sums in another order."""
     qkv_np, g_np = packed(5, 2, 32, 4, 16)
     grads = []
     for through_function in (True, False):
         qkv = torch.from_numpy(qkv_np).requires_grad_()
         q, k, v = qkv.unbind(2)
-        out = (RecomputedBackwardAttention.apply(q, k, v, attention_reference)
+        out = (KernelBackwardAttention.apply(
+                   q, k, v, attention_forward_lse_reference,
+                   attention_backward_reference)
                if through_function else attention_reference(q, k, v))
         out.backward(torch.from_numpy(g_np))
         grads.append(qkv.grad)
-    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
+    assert rel_err(grads[0].numpy(), grads[1].numpy()) <= 1e-6
 
 
 def test_cpu_wrapper_differentiates_the_plain_version_without_launches():

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.ops.attention import _pallas_attention, _xla_attention
 from hybrid_diffusion_tpu_torch.ops.attention import attention_reference
 
@@ -90,10 +91,13 @@ def qk_step_columns(d):
     return steps
 
 
-def tf32x3_attention(q, k, v, passes=3, step_fragments=True):
+def tf32x3_attention(q, k, v, passes=3, step_fragments=True,
+                     return_lse=False):
     """(B, N, h, d) fp32 -> (B, N, h, d) fp32, in the kernel's order of work.
     passes=1 is a single TF32 product (the hi parts only);
-    step_fragments=False accumulates P·V straight into the output."""
+    step_fragments=False accumulates P·V straight into the output;
+    return_lse also returns each row's log-sum-exp as the lse instance
+    writes it, m·c + log2(l), (B, h, N)."""
     B, N, H, D = q.shape
     c = np.float32(1.4426950408889634) / np.float32(math.sqrt(D))
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
@@ -131,7 +135,10 @@ def tf32x3_attention(q, k, v, passes=3, step_fragments=True):
             part = mma(part, ph[..., keys], vh[..., keys, :])
             acc = acc + part if step_fragments else part
         m = m_new
-    return (acc * (1.0 / l)).permute(0, 2, 1, 3)
+    out = (acc * (1.0 / l)).permute(0, 2, 1, 3)
+    if return_lse:
+        return out, (m * c + torch.log2(l)).squeeze(-1)
+    return out
 
 
 def rel_err(a, b):
@@ -150,7 +157,7 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("d", [16, 32, 64])
-@pytest.mark.parametrize("N", [16, 100])
+@pytest.mark.parametrize("N", [16, 64, 100])
 def test_emulation_matches_xla_and_pallas(N, d):
     rng = np.random.default_rng(300 * N + d)
     q, k, v = (rng.standard_normal((2, N, 2, d)).astype(np.float32)
@@ -336,3 +343,32 @@ def test_shared_memory_reads_are_free_of_bank_conflicts(d):
     if sk != d:
         offs = [g * d + 4 * t for g, t in LANES]
         assert bank_conflicts(offs, 4) > 0
+
+
+# At d 64 the kernel keeps each lane's Q lo A fragments (4 TF32 values a k
+# step) in shared memory after the K/V stages: warp w, k step kk, lane l at
+# byte (w·(d/8)·32 + kk·32 + l)·16 of that region (tf32_q_lo_shared).
+WARPS = 4
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_q_lo_fragments_in_shared_memory_at_d_64(d):
+    """Each (warp, k step, lane) has its own 16-byte slot inside the bytes
+    tf32_smem_bytes adds, a warp's store and load of one k step hit every
+    bank once a phase, and the region starts 16-byte aligned; d 64 then
+    needs the launch's opt-in past 48 KiB, d 16 and 32 do not."""
+    stages = 2 * BLOCK_N * (k_stride(d) + v_stride(d)) * 4
+    shared = d == 64
+    region = WARPS * (d // 8) * 32 * 16 if shared else 0
+    if shared:
+        slots = {(w * (d // 8) * 32 + kk * 32 + lane) * 16
+                 for w in range(WARPS) for kk in range(d // 8)
+                 for lane in range(32)}
+        assert len(slots) == WARPS * (d // 8) * 32
+        assert min(slots) == 0 and max(slots) + 16 == region
+        for kk in range(d // 8):
+            offs = [(kk * 32 + lane) * 4 for lane in range(32)]
+            assert bank_conflicts(offs, 4) == 0, kk
+    assert stages % 16 == 0
+    assert (stages + region > 48 * 1024) == shared
+    assert stages + region <= 227 * 1024

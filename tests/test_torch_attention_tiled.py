@@ -35,15 +35,22 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.ops.attention import _pallas_attention, _xla_attention
-from hybrid_diffusion_tpu_torch.ops.attention import SOURCE, attention_reference
+from hybrid_diffusion_tpu_torch.ops.attention import (
+    ROUTE_HEADER,
+    SOURCE,
+    attention_reference,
+)
 from hybrid_diffusion_tpu_torch.utils.cuda_build import CSRC_DIR
 
-# csrc/attention.cu's forward dispatch, its constants read from the source:
-# the mma.sync kernel (MMA_BLOCK_N keys a tile) where mma_fwd(N, D) holds,
-# the wgmma one (WGF_BLOCK_N) elsewhere. block_n follows MMA_FWD_RULE, which
-# test_block_n_follows_the_forward_dispatch finds in mma_fwd's body.
-CUDA_SOURCE = (CSRC_DIR / SOURCE).read_text()
+# csrc/attention.cu's forward dispatch, its constants read from the source
+# and its routes' header: the mma.sync kernel (MMA_BLOCK_N keys a tile)
+# where mma_fwd(N, D) holds, the wgmma one (WGF_BLOCK_N) elsewhere. block_n
+# follows MMA_FWD_RULE, which test_block_n_follows_the_forward_dispatch
+# finds in mma_fwd's body.
+CUDA_SOURCE = "".join((CSRC_DIR / name).read_text()
+                      for name in (SOURCE, ROUTE_HEADER))
 MMA_FWD_RULE = "return D == 16 || (D == 32 && N < WG_MIN_N);"
 
 

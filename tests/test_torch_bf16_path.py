@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.config import Config as JaxConfig
 from hybrid_diffusion_tpu.diffusion import (
     dpm_solver_pp_2m_sample as jax_dpm_sample,

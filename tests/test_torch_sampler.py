@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.config import Config as JaxConfig
 from hybrid_diffusion_tpu.diffusion import (
     ddim_coefficients as jax_ddim_coefficients,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from hybrid_diffusion_tpu.models import DynamicUNet as JaxUNet
 from hybrid_diffusion_tpu_torch.config import Config, flagship_config
 from hybrid_diffusion_tpu_torch.ops import attention as port_attention
