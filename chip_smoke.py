@@ -34,9 +34,8 @@ From a clean checkout, with no arguments, it:
             dispatch's route: wgmma at d 32 from N 257, but not the fp16
             backward, and the forward at d 64; mma.sync elsewhere and in
             fp32) and
-            the bound, the largest of the products at the type's peak, the
-            bytes at the memory rate and the exponentials at the special-
-            function rate;
+            the bound, the larger of the products at the type's peak and
+            the bytes at the memory rate;
   4. serve  loads docs/assets/flagship256_r5_fp16.npz into an Enhancer (256²,
             max_batch 8, bf16, DPM++2M-5) and answers 3 requests of 8, 8
             and 3 images, checking outputs and that the bf16 kernel ran 20
@@ -209,12 +208,11 @@ FLAGSHIP_NPZ = ROOT / "docs" / "assets" / "flagship256_r5_fp16.npz"
 BUDGET_S = 600.0
 T_START = time.perf_counter()
 
-# The bound (bound_ms) is the largest of three times: the products the
+# The bound (bound_ms) is the larger of two times: the products the
 # function needs (4·B·h·N²·d forward) at the card's fastest rate for the
 # type, fp32 products at the TF32 tensor cores' 495 TFLOP/s, not the FMA
-# units' 67; the bytes (each input read once, each output written once) at
-# the memory rate; the exponentials (B·h·N² a forward or backward) at the
-# special-function rate (ops/attention.py: H100_PEAKS, bound_ms). The fp32
+# units' 67; and the bytes (each input read once, each output written once)
+# at the memory rate (ops/attention.py: H100_PEAKS, bound_ms). The fp32
 # kernel's own design, three TF32 products a product (3xTF32), has a floor
 # three times the products', printed beside it (tf32x3_floor_ms) and not
 # used as the bound: another split (for example fp16 parts with scaling)
@@ -549,7 +547,7 @@ def phase_kernel(att, torch, device_ms, host_ms):
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * B * h * N * N * d
         bound_ms, bound_by = att.bound_ms(
-            flops, 4.0 * B * N * h * d * q.element_size(), B * h * N * N, dname)
+            flops, 4.0 * B * N * h * d * q.element_size(), dname)
         row = dict(B=B, N=N, h=h, d=d, dtype=dname, inputs=inputs,
                    kernel=att.KERNEL_BY_DTYPE[dtype],
                    route=att.kernel_route(dtype, N, d),
@@ -665,12 +663,11 @@ def phase_grad(att, torch, device_ms):
             s_out = F.scaled_dot_product_attention(qt, kt, vt)
             gt = g.transpose(1, 2)
             # The function's inputs are q, k, v, out, lse and dout: it
-            # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each), and
-            # P again (N² exponentials).
+            # forms S again (2 N²d), dP, dV, dK and dQ (2 N²d each).
             bwd_bound_ms, bwd_bound_by = att.bound_ms(
                 10.0 * B * h * N * N * d,
                 8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N,
-                B * h * N * N, dname)
+                dname)
             row.update(
                 bwd_route=att.kernel_route(dtype, N, d, backward=True),
                 bwd_ms=device_ms(lambda: att.attention_backward(
@@ -688,11 +685,10 @@ def phase_grad(att, torch, device_ms):
                     / att.H100_PEAKS["flops"][dname] * 1e3)
             del s_out
         if timed:
-            # forward 4 N²d products and N² exponentials, its vjp 8 and N²
+            # forward 4 N²d products, its vjp 8
             fwd_bwd_bound_ms, fwd_bwd_bound_by = att.bound_ms(
                 12.0 * B * h * N * N * d,
-                8.0 * B * N * h * d * qkv.element_size(), 2.0 * B * h * N * N,
-                dname)
+                8.0 * B * N * h * d * qkv.element_size(), dname)
             row.update(
                 fwd_bwd_ms=device_ms(kernel_fwd_bwd, reps=15, inner=5),
                 plain_fwd_bwd_ms=device_ms(plain_fwd_bwd, reps=5, inner=2),

@@ -259,7 +259,7 @@ def main_forward() -> None:
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
         row["bound_ms"], row["bound_by"] = att.bound_ms(
             4.0 * B * h * N * N * d, 4.0 * B * N * h * d * q.element_size(),
-            B * h * N * N, dtype)
+            dtype)
         if fp32:  # three TF32 products a product
             row["tf32x3_floor_ms"] = (12.0 * B * h * N * N * d
                                       / att.H100_PEAKS["flops"][dtype] * 1e3)
@@ -308,11 +308,10 @@ def main_backward() -> None:
             s_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True),
             reps=15, inner=5)
         # q, k, v, out, dout in and dq, dk, dv out, with lse; S again, dP,
-        # dV, dK and dQ; P again.
+        # dV, dK and dQ.
         row["bound_ms"], row["bound_by"] = att.bound_ms(
             10.0 * B * h * N * N * d,
-            8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N,
-            B * h * N * N, dtype)
+            8.0 * B * N * h * d * q.element_size() + 4.0 * B * h * N, dtype)
         if dtype == "float32":  # three TF32 products a product
             row["tf32x3_floor_ms"] = (30.0 * B * h * N * N * d
                                       / att.H100_PEAKS["flops"][dtype] * 1e3)
@@ -357,7 +356,7 @@ def main() -> None:
             lambda: F.scaled_dot_product_attention(qt, kt, vt))
         row["bound_ms"], row["bound_by"] = att.bound_ms(
             4.0 * B * h * N * N * d, 4.0 * B * N * h * d * q.element_size(),
-            B * h * N * N, str(q.dtype).split(".")[-1])
+            str(q.dtype).split(".")[-1])
         for name, ms in times.items():
             row[f"{name}_ms"] = ms
         print(json.dumps(row), flush=True)

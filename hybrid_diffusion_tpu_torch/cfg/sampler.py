@@ -22,6 +22,7 @@ import torch
 
 from ..diffusion.sampler import ddpm_step
 from ..diffusion.schedule import DiffusionSchedule
+from ..utils.profiling import span
 
 # denoise_fn(x: (B, H, W, 3), t: (B,) int, labels: (B,) int) -> eps (B, H, W, 3)
 LabelDenoiseFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -62,11 +63,12 @@ def cfg_ddpm_sample(denoise_fn: LabelDenoiseFn, schedule: DiffusionSchedule,
     x = (torch.randn(shape, generator=generator, device=device)
          if init_noise is None else init_noise)
     for i, t_int in enumerate(range(T - 1, -1, -1)):
-        t = torch.full((B,), t_int, dtype=torch.long, device=device)
-        eps = _guided_eps(denoise_fn, x, t, labels, w)
-        z = None
-        if t_int > 0:
-            z = (torch.randn(shape, generator=generator, device=device)
-                 if step_noise is None else step_noise[i])
-        x = ddpm_step(schedule, x, t_int, eps, z)
+        with span("sampler/step", device=True, t=t_int):
+            t = torch.full((B,), t_int, dtype=torch.long, device=device)
+            eps = _guided_eps(denoise_fn, x, t, labels, w)
+            z = None
+            if t_int > 0:
+                z = (torch.randn(shape, generator=generator, device=device)
+                     if step_noise is None else step_noise[i])
+            x = ddpm_step(schedule, x, t_int, eps, z)
     return x.clamp(-1.0, 1.0)

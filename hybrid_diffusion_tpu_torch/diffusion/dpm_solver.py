@@ -21,6 +21,7 @@ import torch
 from .process import ddim_time_grid
 from .sampler import DenoiseFn, _guided_eps, initial_noise
 from .schedule import DiffusionSchedule
+from ..utils.profiling import span
 
 
 def dpm_solver_coefficients(schedule: DiffusionSchedule,
@@ -70,20 +71,24 @@ def dpm_solver_pp_2m_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
     x0_prev = None
     h_prev = np.float32(1.0)
     for i in range(steps):
-        t = torch.full((B,), int(c["t"][i]), dtype=torch.long,
-                       device=cond_image.device)
-        eps = _guided_eps(denoise_fn, torch.cat([cond_image, x], dim=-1), t,
-                          guidance_scale)
-        x0 = (x - float(c["s_cur"][i]) * eps) / float(c["a_cur"][i])
-        if x0_prev is None:
-            d = x0
-        else:
-            half_inv_r = np.float32(1.0) / (np.float32(2.0) * (h_prev / c["h"][i]))
-            d = float(np.float32(1.0) + half_inv_r) * x0 - float(half_inv_r) * x0_prev
-        if c["is_last"][i] > 0:
-            x = d
-        else:
-            x = (float(c["sigma_ratio"][i]) * x
-                 - float(c["a_next"][i] * c["phi"][i]) * d)
-        x0_prev, h_prev = x0, c["h"][i]
+        t_int = int(c["t"][i])
+        with span("sampler/step", device=True, t=t_int):
+            t = torch.full((B,), t_int, dtype=torch.long,
+                           device=cond_image.device)
+            eps = _guided_eps(denoise_fn, torch.cat([cond_image, x], dim=-1),
+                              t, guidance_scale)
+            x0 = (x - float(c["s_cur"][i]) * eps) / float(c["a_cur"][i])
+            if x0_prev is None:
+                d = x0
+            else:
+                half_inv_r = np.float32(1.0) / (np.float32(2.0)
+                                                * (h_prev / c["h"][i]))
+                d = (float(np.float32(1.0) + half_inv_r) * x0
+                     - float(half_inv_r) * x0_prev)
+            if c["is_last"][i] > 0:
+                x = d
+            else:
+                x = (float(c["sigma_ratio"][i]) * x
+                     - float(c["a_next"][i] * c["phi"][i]) * d)
+            x0_prev, h_prev = x0, c["h"][i]
     return x.clamp(-1.0, 1.0)

@@ -26,6 +26,7 @@ import torch
 
 from .process import ddim_coefficients
 from .schedule import DiffusionSchedule
+from ..utils.profiling import span
 
 DenoiseFn = Callable[..., torch.Tensor]
 
@@ -103,14 +104,16 @@ def ddpm_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
     B = cond_image.shape[0]
     y = initial_noise(cond_image, generator) if init_noise is None else init_noise
     for i, t_int in enumerate(range(T - 1, -1, -1)):
-        t = torch.full((B,), t_int, dtype=torch.long, device=cond_image.device)
-        eps = _guided_eps(denoise_fn, torch.cat([cond_image, y], dim=-1), t,
-                          guidance_scale)
-        z = None
-        if t_int > 0:
-            z = (initial_noise(y, generator) if step_noise is None
-                 else step_noise[i])
-        y = ddpm_step(schedule, y, t_int, eps, z)
+        with span("sampler/step", device=True, t=t_int):
+            t = torch.full((B,), t_int, dtype=torch.long,
+                           device=cond_image.device)
+            eps = _guided_eps(denoise_fn, torch.cat([cond_image, y], dim=-1),
+                              t, guidance_scale)
+            z = None
+            if t_int > 0:
+                z = (initial_noise(y, generator) if step_noise is None
+                     else step_noise[i])
+            y = ddpm_step(schedule, y, t_int, eps, z)
     return y.clamp(-1.0, 1.0)
 
 
@@ -127,13 +130,17 @@ def ddim_sample(denoise_fn: DenoiseFn, schedule: DiffusionSchedule,
     c = ddim_coefficients(schedule, ddim_steps, eta)
     y = initial_noise(cond_image, generator) if init_noise is None else init_noise
     for i in range(ddim_steps):
-        t = torch.full((B,), int(c["t"][i]), dtype=torch.long,
-                       device=cond_image.device)
-        eps = _guided_eps(denoise_fn, torch.cat([cond_image, y], dim=-1), t,
-                          guidance_scale)
-        x0 = (y - eps * float(c["sqrt_one_minus_at"][i])) / float(c["sqrt_at"][i])
-        y_prev = float(c["sqrt_at_prev"][i]) * x0
-        if c["c1"][i] != 0:
-            y_prev = y_prev + float(c["c1"][i]) * initial_noise(y, generator)
-        y = y_prev + float(c["c2"][i]) * eps
+        t_int = int(c["t"][i])
+        with span("sampler/step", device=True, t=t_int):
+            t = torch.full((B,), t_int, dtype=torch.long,
+                           device=cond_image.device)
+            eps = _guided_eps(denoise_fn, torch.cat([cond_image, y], dim=-1),
+                              t, guidance_scale)
+            x0 = ((y - eps * float(c["sqrt_one_minus_at"][i]))
+                  / float(c["sqrt_at"][i]))
+            y_prev = float(c["sqrt_at_prev"][i]) * x0
+            if c["c1"][i] != 0:
+                y_prev = (y_prev
+                          + float(c["c1"][i]) * initial_noise(y, generator))
+            y = y_prev + float(c["c2"][i]) * eps
     return y.clamp(-1.0, 1.0)

@@ -150,23 +150,18 @@ BWD_RTOL = {("bfloat16", "randn"): 3e-2, ("float16", "randn"): 1.75e-3,
 
 
 # One H100 SXM's peaks (NVIDIA's data sheet, dense): FLOP/s of the products
-# by input type (fp32 on the TF32 tensor cores), bytes/s of device memory,
-# and exponentials/s of the special-function units ("989 TFLOPS of FP16
-# matmul but only 3.9 TFLOPS of special functions", Shah et al. 2024,
-# FlashAttention-3, section 3.3).
+# by input type (fp32 on the TF32 tensor cores) and bytes/s of device memory.
 H100_PEAKS = {"flops": {"bfloat16": 989e12, "float16": 989e12,
                         "float32": 495e12},
-              "bytes": 3.35e12, "exponentials": 3.9e12}
+              "bytes": 3.35e12}
 
 
-def bound_ms(flops: float, nbytes: float, exps: float,
-             dname: str) -> tuple[float, str]:
+def bound_ms(flops: float, nbytes: float, dname: str) -> tuple[float, str]:
     """(ms, what binds it): the least time an H100 could take for work of
-    `flops` products of type `dname`, `nbytes` moved and `exps`
-    exponentials, the largest of the three times at H100_PEAKS."""
+    `flops` products of type `dname` and `nbytes` moved, the larger of the
+    two times at H100_PEAKS."""
     times = {"operations": flops / H100_PEAKS["flops"][dname],
-             "bytes": nbytes / H100_PEAKS["bytes"],
-             "exponentials": exps / H100_PEAKS["exponentials"]}
+             "bytes": nbytes / H100_PEAKS["bytes"]}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
 

@@ -34,25 +34,13 @@ from .config import parse_config
 from .ops import attention as att
 from .train import loop
 from .utils.cuda_build import nvidia_smi_line
+from .utils.profiling import busy_us
 
 FLAGSHIP_NPZ = (Path(__file__).resolve().parent.parent / "docs" / "assets"
                 / "flagship256_r5_fp16.npz")
 WARMUP = 2
 WINDOW = 10
 STEPS = WARMUP + 2 * WINDOW
-
-
-def busy_us(prof) -> float:
-    """Length of the union of the device's event intervals, in µs."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    total, end = 0.0, float("-inf")
-    for lo, hi in spans:
-        if hi > end:
-            total += hi - max(lo, end)
-            end = hi
-    return total
 
 
 def measure(device_data: bool) -> dict:

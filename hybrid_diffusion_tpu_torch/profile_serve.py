@@ -13,8 +13,12 @@ TF32), times CALLS warm device calls with the host clock
 (each ends in a copy to the host), then traces one more call with
 torch.profiler and prints the device time by kernel class (attention
 kernel, convolutions, matrix products, GroupNorm, copies and casts, other
-elementwise), the top kernels, and the device's busy share of the traced
-call. Prints one JSON line last.
+elementwise), the top kernels, the device's busy share of the traced
+call (the union of its kernels' and copies' intervals over the call's wall
+time), and the call's spans (utils/profiling.py::span: `enhance` and its
+resizes, copies and sampler call, each sampler step), each with its host
+ms, its device ms where it has one, and its attrs. Prints one JSON line
+last.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from .config import flagship_config
 from .ops import attention as att
 from .serve import Enhancer
 from .utils.cuda_build import nvidia_smi_line
+from .utils.profiling import busy_us, clear, spans
 
 FLAGSHIP_NPZ = (Path(__file__).resolve().parent.parent / "docs" / "assets"
                 / "flagship256_r5_fp16.npz")
@@ -87,17 +92,25 @@ def main() -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     att.reset_launch_count()
+    clear()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         enh.enhance(batch)
         traced_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    traced_spans = [{"name": r["name"],
+                     "host_ms": (r["end_ns"] - r["start_ns"]) / 1e6,
+                     "device_ms": r["device_ms"], "attrs": r["attrs"]}
+                    for r in spans()]
 
     by_kernel = collections.Counter()
     counts = collections.Counter()
     for ev in prof.key_averages():
-        # Kernels only: an operator's entry repeats its kernels' time.
+        # Kernels only: an operator's entry repeats its kernels' time, and
+        # a span's range on the card's timeline covers its kernels.
         us = ev.self_device_time_total
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not ev.is_user_annotation):
             by_kernel[ev.key] += us
             counts[ev.key] += ev.count
     total_us = sum(by_kernel.values())
@@ -111,15 +124,20 @@ def main() -> None:
     print(f"untraced call: median {statistics.median(walls) * 1e3:.2f} ms "
           f"over {CALLS} (batch {BATCH}, "
           f"{BATCH / statistics.median(walls):.2f} img/s)")
+    busy = busy_us(prof) / 1e6 / traced_wall
     print(f"traced call: {traced_wall * 1e3:.2f} ms wall, "
-          f"{total_us / 1e3:.2f} ms of kernels "
-          f"(busy {100 * total_us / 1e3 / (traced_wall * 1e3):.1f}%), "
+          f"{total_us / 1e3:.2f} ms of kernels (busy {100 * busy:.1f}%), "
           f"attention launches {att.launch_count}")
     for cls, us in by_class.most_common():
         print(f"  {cls:28s} {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f}%")
     print("top kernels:")
     for name, us in by_kernel.most_common(12):
         print(f"  {us / 1e3:9.3f} ms  x{counts[name]:<5d} {name[:110]}")
+    print("spans of the traced call: host ms, device ms, attrs")
+    for sp in traced_spans:
+        device = "" if sp["device_ms"] is None else f"{sp['device_ms']:9.3f}"
+        print(f"  {sp['name']:20s} {sp['host_ms']:9.3f} {device:>9s}  "
+              f"{sp['attrs'] or ''}")
     print(json.dumps({
         "card": smi, "batch": BATCH, "dtype": "fp32" if fp32 else "bf16",
         "tf32": tf32,
@@ -127,7 +145,9 @@ def main() -> None:
         "call_ms": [w * 1e3 for w in walls],
         "traced_call_ms": traced_wall * 1e3,
         "kernel_ms": total_us / 1e3,
+        "busy_share": busy,
         "by_class_ms": {k: v / 1e3 for k, v in by_class.items()},
+        "spans": traced_spans,
         "attention_launches": att.launch_count}))
 
 

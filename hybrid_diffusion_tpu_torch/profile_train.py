@@ -11,13 +11,16 @@ full-precision mode (bf16=False, DINO in fp32 too), with TF32 off for
 matmuls and cuDNN as in chip_smoke.py. Times N warm steps with the host
 clock (each ends in a synchronize), then traces one more with
 torch.profiler and prints: the device time by kernel class, the device's
-busy and idle share of the traced step, the time of each of the step's
-ranges (train/forward, train/loss, train/backward, train/update: the
-optimizer, the gates and their blend, the EMA), the attention's forward
-kernel and its backward (the KernelBackwardAttention node: the backward
-kernel, and a copy of the incoming gradient where the kernel cannot read
-it as it lies), and, traced alone at the step's
-shapes, the DINO term's forward + backward. Prints one JSON line last.
+busy and idle share of the traced step (the union of its kernels' and
+copies' intervals over the step's wall time), the host and device ms of
+each of the step's spans (utils/profiling.py::span: train/step and its
+phases train/forward, train/loss, train/backward, train/gates and
+train/update: the optimizer, the gates' blend, the EMA), the attention's
+forward kernel and its backward (the KernelBackwardAttention node: the
+backward kernel, and a copy of the incoming gradient where the kernel
+cannot read it as it lies), and, traced alone at the step's shapes, the
+DINO term's forward + backward. Prints one JSON line last: `ranges_ms`
+holds each span's host ms, `spans_ms` its device ms.
 """
 
 from __future__ import annotations
@@ -38,13 +41,15 @@ from .profile_serve import FLAGSHIP_NPZ, kernel_class
 from .train.loop import create_train_state, init_params, make_dino
 from .train.step import make_train_step
 from .utils.cuda_build import nvidia_smi_line
+from .utils.profiling import busy_us, clear, spans
 
 BATCH = 16
 # The r5 flagship's fine-tune settings: its sidecar's EMA decay
 # (flagship256_r5_fp16.npz.json) and docs/RUNBOOK.md's lr for a warm start.
 FINE_TUNE = dict(dropout=0.15, ema_decay=0.99875, lr=1e-5, batch_size=BATCH,
                  init_from_npz=str(FLAGSHIP_NPZ))
-RANGES = ("train/forward", "train/loss", "train/backward", "train/update")
+RANGES = ("train/step", "train/forward", "train/loss", "train/backward",
+          "train/gates", "train/update")
 # The attention's autograd node (KernelBackwardAttention's); matched by its
 # suffix, which any backward Function of the ops module shares.
 ATTENTION_BACKWARD = "KernelBackwardAttentionBackward"
@@ -118,27 +123,27 @@ def main() -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     att.reset_launch_count()
+    clear()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step(state, data[-1], gen)
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
+    step_spans = {r["name"]: r for r in spans()}
+    host_ms = {k: (step_spans[k]["end_ns"] - step_spans[k]["start_ns"]) / 1e6
+               for k in RANGES}
+    device_ms = {k: step_spans[k]["device_ms"] for k in RANGES}
 
     by_kernel = collections.Counter()
     counts = collections.Counter()
-    ranges = collections.Counter()      # device time of the kernels launched
-    spans = collections.Counter()       # device-side span of each range
+    attention_bwd_node_us = 0.0
     for ev in prof.key_averages():
         on_card = ev.device_type == torch.autograd.DeviceType.CUDA
-        if ev.key in RANGES:
-            if on_card:        # the range's annotation on the card's timeline
-                spans[ev.key] = ev.self_device_time_total
-            else:
-                ranges[ev.key] = ev.device_time_total
-        elif ev.key.endswith(ATTENTION_BACKWARD_SUFFIX) and not on_card:
-            ranges[ATTENTION_BACKWARD] = max(ranges[ATTENTION_BACKWARD],
-                                             ev.device_time_total)
-        elif on_card and ev.self_device_time_total > 0:   # kernels only
+        if ev.key.endswith(ATTENTION_BACKWARD_SUFFIX) and not on_card:
+            attention_bwd_node_us = max(attention_bwd_node_us,
+                                        ev.device_time_total)
+        elif (on_card and ev.self_device_time_total > 0
+              and not ev.is_user_annotation):        # kernels only
             by_kernel[ev.key] += ev.self_device_time_total
             counts[ev.key] += ev.count
     total_us = sum(by_kernel.values())
@@ -164,9 +169,10 @@ def main() -> None:
         torch.autograd.grad(dino(x0, gt), x0)
         torch.cuda.synchronize()
     dino_ms = sum(ev.self_device_time_total for ev in dprof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not ev.is_user_annotation) / 1e3
 
-    busy = total_us / 1e3 / (traced_wall * 1e3)
+    busy = busy_us(prof) / 1e6 / traced_wall
     print(f"card: {smi}; flagship train step, batch {BATCH}, {dtype}")
     print(f"untraced step: median {statistics.median(walls) * 1e3:.2f} ms over "
           f"{len(walls)} ({BATCH / statistics.median(walls):.2f} img/s); "
@@ -177,15 +183,14 @@ def main() -> None:
           f"{dict(att.launch_counts)}")
     for cls, us in by_class.most_common():
         print(f"  {cls:28s} {us / 1e3:9.3f} ms  {100 * us / total_us:5.1f}%")
-    print("ranges: device time of the kernels each launched from the main "
-          "thread (the backward's run on autograd's thread), and the span "
-          "on the card's timeline:")
-    for name in (*RANGES, ATTENTION_BACKWARD):
-        print(f"  {name:40s} {ranges[name] / 1e3:9.3f} ms  span "
-              f"{spans[name] / 1e3:9.3f} ms")
+    print("spans: host ms, and device ms between CUDA events at the span's "
+          "entry and exit:")
+    for name in RANGES:
+        print(f"  {name:16s} host {host_ms[name]:9.3f} ms  device "
+              f"{device_ms[name]:9.3f} ms")
     print(f"attention forward kernel {attention_fwd_us / 1e3:.3f} ms, its "
-          f"backward {ranges[ATTENTION_BACKWARD] / 1e3:.3f} ms "
-          f"({100 * ranges[ATTENTION_BACKWARD] / total_us:.2f}% of the step; "
+          f"backward ({ATTENTION_BACKWARD}) {attention_bwd_node_us / 1e3:.3f} "
+          f"ms ({100 * attention_bwd_node_us / total_us:.2f}% of the step; "
           f"its kernels {attention_bwd_us / 1e3:.3f} ms)")
     print(f"DINO term alone, forward + backward: {dino_ms:.3f} ms of kernels")
     print("top kernels:")
@@ -200,8 +205,9 @@ def main() -> None:
         "kernel_ms": total_us / 1e3,
         "idle_share": 1 - busy,
         "by_class_ms": {k: v / 1e3 for k, v in by_class.items()},
-        "ranges_ms": {k: ranges[k] / 1e3 for k in (*RANGES, ATTENTION_BACKWARD)},
-        "spans_ms": {k: spans[k] / 1e3 for k in RANGES},
+        "ranges_ms": host_ms,
+        "spans_ms": device_ms,
+        "attention_bwd_node_ms": attention_bwd_node_us / 1e3,
         "attention_fwd_ms": attention_fwd_us / 1e3,
         "attention_bwd_ms": attention_bwd_us / 1e3,
         "dino_fwd_bwd_ms": dino_ms,

@@ -40,6 +40,7 @@ from .data.native import BILINEAR, batch_resize
 from .train.loop import build_model, make_sampler
 from .utils.device import resolve_device
 from .utils.precision import precision_for
+from .utils.profiling import span
 from .weights import load_npz_state_dict
 
 
@@ -63,36 +64,48 @@ class Enhancer:
                                     mesh=mesh)
         self._generator = torch.Generator(self.device).manual_seed(config.seed)
         self.device_calls = 0
+        self.requests = 0
         if warmup:
             self._run(np.zeros((max_batch, self.size, self.size, 3), np.uint8))
 
     def _run(self, batch_u8: np.ndarray) -> np.ndarray:
         """One padded fixed-shape device call. batch_u8: (≤max_batch,S,S,3)."""
         n = batch_u8.shape[0]
-        if n < self.max_batch:
-            pad = np.zeros((self.max_batch - n, self.size, self.size, 3),
-                           np.uint8)
-            batch_u8 = np.concatenate([batch_u8, pad])
-        x = torch.from_numpy(batch_u8).to(self.device)
-        out = self._sample(x, self._generator)
-        self.device_calls += 1
-        return out[:n].cpu().numpy()
+        with span("enhance/call", rows=n, padded=self.max_batch - n):
+            with span("enhance/h2d"):
+                if n < self.max_batch:
+                    pad = np.zeros((self.max_batch - n, self.size, self.size,
+                                    3), np.uint8)
+                    batch_u8 = np.concatenate([batch_u8, pad])
+                x = torch.from_numpy(batch_u8).to(self.device)
+            with span("enhance/sample", device=True):
+                out = self._sample(x, self._generator)
+            self.device_calls += 1
+            with span("enhance/d2h"):
+                return out[:n].cpu().numpy()
 
     def enhance(self, images: Sequence[np.ndarray]) -> list[np.ndarray]:
         """Enhance HWC uint8 images of any sizes; outputs match inputs'
-        original sizes (the model runs at config.img_size)."""
+        original sizes (the model runs at config.img_size). Its spans carry
+        this Enhancer's request number."""
         if not len(images):
             return []
-        sizes = [im.shape[:2] for im in images]
-        batch = batch_resize(list(images), (self.size, self.size), BILINEAR)
-        outs: list[np.ndarray] = []
-        for lo in range(0, len(images), self.max_batch):
-            outs.extend(self._run(batch[lo: lo + self.max_batch]))
-        return [
-            batch_resize([o], (h, w), BILINEAR)[0] if (h, w) != o.shape[:2]
-            else o
-            for o, (h, w) in zip(outs, sizes)
-        ]
+        self.requests += 1
+        with span("enhance", request=self.requests, images=len(images)):
+            sizes = [im.shape[:2] for im in images]
+            pixels = sum(h * w for h, w in sizes)
+            with span("enhance/resize_in", pixels=pixels):
+                batch = batch_resize(list(images), (self.size, self.size),
+                                     BILINEAR)
+            outs: list[np.ndarray] = []
+            for lo in range(0, len(images), self.max_batch):
+                outs.extend(self._run(batch[lo: lo + self.max_batch]))
+            with span("enhance/resize_out", pixels=pixels):
+                return [
+                    batch_resize([o], (h, w), BILINEAR)[0]
+                    if (h, w) != o.shape[:2] else o
+                    for o, (h, w) in zip(outs, sizes)
+                ]
 
     def enhance_paths(self, paths: Sequence[str],
                       output_dir: Optional[str] = None) -> list[np.ndarray]:

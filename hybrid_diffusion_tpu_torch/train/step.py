@@ -7,9 +7,11 @@ Counterpart of `hybrid_diffusion_tpu/train/step.py`:
     domain-gated middle-block grads → clip + AdamW → blend the gated
     blocks' parameters and AdamW moments back → EMA.
 
-The step's phases are `torch.profiler.record_function` ranges ("train/
-forward", "train/loss", "train/backward", "train/update"), which cost
-nothing measurable outside a profiler (profile_train.py reads them).
+The step is the span "train/step" and its phases are its child spans
+("train/forward", "train/loss", "train/backward", "train/gates",
+"train/update"; utils/profiling.py::span, each with the card's time),
+which record only inside a profiler (profile_train.py prints them, the
+benchmark's traced run reads the loss and update spans).
 
 Every random draw (t, ε, the p_uncond drop, the dropout masks) comes from
 the caller's `torch.Generator`, in that order; the global generator is never
@@ -43,7 +45,6 @@ from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..diffusion.process import predict_x0_from_eps, q_sample
 from ..diffusion.schedule import DiffusionSchedule
@@ -52,6 +53,7 @@ from ..models.unet import NUM_MIDDLE_BLOCKS, domain_gates_from_batch
 from ..parallel.collectives import all_reduce_
 from ..parallel.mesh import axis_group, axis_rank, axis_size
 from ..utils.precision import precision_for
+from ..utils.profiling import span
 from .train_state import TrainState
 
 
@@ -140,63 +142,66 @@ def diffusion_train_step(
     "grad_norm" (of the gated grads, before the clip) and, with domain
     routing, "underwater_gate"; device scalars.
     """
-    device = next(iter(state.params.values())).device
-    input_img = normalize_uint8(torch.as_tensor(batch["input"]).to(device))
-    gt = normalize_uint8(torch.as_tensor(batch["gt"]).to(device))
-    B = gt.shape[0]
-    # This rank's rows of the global batch of B·D.
-    D, d = axis_size(mesh, "data"), axis_rank(mesh, "data")
-    data_group = axis_group(mesh, "data")
-    rows = slice(d * B, (d + 1) * B)
+    with span("train/step", device=True):
+        device = next(iter(state.params.values())).device
+        input_img = normalize_uint8(torch.as_tensor(batch["input"]).to(device))
+        gt = normalize_uint8(torch.as_tensor(batch["gt"]).to(device))
+        B = gt.shape[0]
+        # This rank's rows of the global batch of B·D.
+        D, d = axis_size(mesh, "data"), axis_rank(mesh, "data")
+        data_group = axis_group(mesh, "data")
+        rows = slice(d * B, (d + 1) * B)
 
-    if t is None:
-        t = torch.randint(0, schedule.num_steps, (B * D,), device=device,
-                          generator=generator)
-    t = t[rows].to(device)
-    if noise is None:
-        noise = torch.randn((B * D,) + tuple(gt.shape[1:]), device=device,
-                            generator=generator)
-    noise = noise[rows].to(device)
-    y_t = q_sample(schedule, gt, t, noise)
-    x6 = torch.cat([input_img, y_t], dim=-1)
-    if use_conditioning:
-        context_zero = torch.rand((B * D,), device=device,
-                                  generator=generator)[rows] < p_uncond
-    else:
-        context_zero = True
-    aux_w = (torch.as_tensor(schedule.alphas_bar, device=device)[t.long()]
-             if loss_config.aux_snr_weight else None)
-    drop_gen = generator
-    if D > 1:
-        drop_gen = torch.Generator(device).manual_seed(dropout_seed(
-            generator, d, state.step * state.grad_accum + state.mini_step))
+        if t is None:
+            t = torch.randint(0, schedule.num_steps, (B * D,), device=device,
+                              generator=generator)
+        t = t[rows].to(device)
+        if noise is None:
+            noise = torch.randn((B * D,) + tuple(gt.shape[1:]), device=device,
+                                generator=generator)
+        noise = noise[rows].to(device)
+        y_t = q_sample(schedule, gt, t, noise)
+        x6 = torch.cat([input_img, y_t], dim=-1)
+        if use_conditioning:
+            context_zero = torch.rand((B * D,), device=device,
+                                      generator=generator)[rows] < p_uncond
+        else:
+            context_zero = True
+        aux_w = (torch.as_tensor(schedule.alphas_bar, device=device)[t.long()]
+                 if loss_config.aux_snr_weight else None)
+        drop_gen = generator
+        if D > 1:
+            drop_gen = torch.Generator(device).manual_seed(dropout_seed(
+                generator, d, state.step * state.grad_accum + state.mini_step))
 
-    state.optimizer.zero_grad(set_to_none=True)
-    with record_function("train/forward"):
-        noise_pred = state.train_model(x6, t, cond_image=input_img,
-                                       context_zero=context_zero, train=True,
-                                       generator=drop_gen)
-    with record_function("train/loss"):
-        x0_pred = predict_x0_from_eps(schedule, y_t, t, noise_pred)
-        loss, parts = composite_enhancement_loss(
-            noise_pred, noise, x0_pred, gt, loss_config,
-            dino_loss_fn=dino_loss_fn, vgg_loss_fn=vgg_loss_fn,
-            aux_weights=aux_w, group=data_group)
-    with record_function("train/backward"):
-        loss.backward()
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("train/forward", device=True):
+            noise_pred = state.train_model(x6, t, cond_image=input_img,
+                                           context_zero=context_zero,
+                                           train=True, generator=drop_gen)
+        with span("train/loss", device=True):
+            x0_pred = predict_x0_from_eps(schedule, y_t, t, noise_pred)
+            loss, parts = composite_enhancement_loss(
+                noise_pred, noise, x0_pred, gt, loss_config,
+                dino_loss_fn=dino_loss_fn, vgg_loss_fn=vgg_loss_fn,
+                aux_weights=aux_w, group=data_group)
+        with span("train/backward", device=True):
+            loss.backward()
 
-    gates = (domain_gates_from_batch(input_img, group=data_group)
-             if domain_routing else None)
-    with record_function("train/update"):
-        parts["grad_norm"] = gated_update(state, gates)
-    if gates is not None:
-        parts["underwater_gate"] = gates[0]
-    metrics = {k: v.detach() for k, v in parts.items()}
-    if data_group is not None:   # the global batch's: the mean over "data"
-        values = all_reduce_(torch.stack(list(metrics.values())).float(),
-                             data_group) / D
-        metrics = dict(zip(metrics, values.unbind()))
-    return state, metrics
+        gates = None
+        if domain_routing:
+            with span("train/gates", device=True):
+                gates = domain_gates_from_batch(input_img, group=data_group)
+        with span("train/update", device=True):
+            parts["grad_norm"] = gated_update(state, gates)
+        if gates is not None:
+            parts["underwater_gate"] = gates[0]
+        metrics = {k: v.detach() for k, v in parts.items()}
+        if data_group is not None:   # the global batch's: the mean over "data"
+            values = all_reduce_(torch.stack(list(metrics.values())).float(),
+                                 data_group) / D
+            metrics = dict(zip(metrics, values.unbind()))
+        return state, metrics
 
 
 def gated_update(state: TrainState,

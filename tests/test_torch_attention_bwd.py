@@ -382,21 +382,20 @@ def test_kernel_instance_parses_the_mangled_names(symbol, expected):
 
 
 # (kind, (B, N, h, d), ms, what binds): the bound the card checks report,
-# the largest of the products, the bytes and the exponentials.
+# the larger of the products and the bytes.
 @pytest.mark.parametrize("kind,shape,ms,by", [
-    ("forward", (8, 1024, 8, 32), 0.017207, "exponentials"),   # serve
-    ("forward", (160, 256, 8, 32), 0.025041, "bytes"),         # CFG sampler
-    ("backward", (80, 1024, 8, 16), 0.17207, "exponentials"),  # CFG train
-    ("backward", (8, 1024, 4, 32), 0.010857, "operations"),    # TP
+    ("forward", (8, 1024, 8, 32), 0.0086855, "operations"),     # serve
+    ("forward", (160, 256, 8, 32), 0.025041, "bytes"),          # CFG sampler
+    ("backward", (80, 1024, 8, 16), 0.10857, "operations"),     # CFG train
+    ("backward", (8, 1024, 4, 32), 0.010857, "operations"),     # TP
 ], ids=["serve", "cfg_n256", "cfg_bwd_n1024", "tp_bwd"])
 def test_bound_is_the_largest_of_products_bytes_and_exponentials(kind, shape,
                                                                  ms, by):
     B, N, h, d = shape
     if kind == "forward":
-        work = (4.0 * B * h * N * N * d, 4.0 * B * N * h * d * 2, B * h * N * N)
+        work = (4.0 * B * h * N * N * d, 4.0 * B * N * h * d * 2)
     else:
-        work = (10.0 * B * h * N * N * d, 8.0 * B * N * h * d * 2 + 4.0 * B * h * N,
-                B * h * N * N)
+        work = (10.0 * B * h * N * N * d, 8.0 * B * N * h * d * 2 + 4.0 * B * h * N)
     got_ms, got_by = port_attention.bound_ms(*work, "bfloat16")
     assert got_by == by
     assert got_ms == pytest.approx(ms, rel=1e-4)
